@@ -1,0 +1,109 @@
+"""Build and load the hand-written Hopper kernels (fsgm_tpu_torch/csrc).
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
+with a plain C interface and loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/fsgm_tpu_torch/lib<name>_<hash>.so <name>.cu
+
+No ``--use_fast_math``: the extraction kernel's f32 division must stay IEEE
+to reproduce the host's rint(subpixel) bit for bit.  The library name
+carries a hash of the source and the flags, so an edited source rebuilds and
+an unchanged one loads from the build directory.  The build happens at
+first use, never at import: importing this module needs no CUDA toolkit.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` turns a non-zero code into an exception.  ``LAUNCHES`` counts the
+kernel launches made by the wrappers in ``ops/kernels/*.py``: each wrapper
+adds one where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+SRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "fsgm_tpu_torch"
+NVCC_FALLBACK = Path("/usr/local/cuda/bin/nvcc")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of each library's entry point: (symbol, argtypes)
+ENTRY = {
+    "cost": ("fsgm_census_cost", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "sgm_sweep": ("fsgm_sgm_sweep",
+                  [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "extract": ("fsgm_extract_stereo",
+                [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+}
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: the one on PATH, else the CUDA toolkit's default."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if NVCC_FALLBACK.exists():
+        return str(NVCC_FALLBACK)
+    raise RuntimeError(
+        "nvcc not found (not on PATH and no "
+        f"{NVCC_FALLBACK}): the fsgm_tpu_torch CUDA kernels are compiled "
+        "at first use and need the CUDA toolkit; CPU tensors take the "
+        "plain PyTorch versions instead")
+
+
+def build_library(name: str) -> Path:
+    """Compile csrc/<name>.cu (if not built yet) and return the .so path."""
+    src = SRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{name}_{digest}.so"
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+@functools.cache
+def load(name: str):
+    """The C entry point of csrc/<name>.cu, built on first use."""
+    symbol, argtypes = ENTRY[name]
+    fn = getattr(ctypes.CDLL(str(build_library(name))), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream handle of tensor t's device."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

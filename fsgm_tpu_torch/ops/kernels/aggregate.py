@@ -1,0 +1,171 @@
+"""K2 sgm_sweep: SGM path aggregation, one direction per launch.
+
+Replaces fsgm_tpu/ops/pallas/aggregate_tr.py::tr_family_sweep (and its
+entry aggregate_paths_tr) on the label-minor (H, W, D) volume:
+
+    L_r(p, d) = C(p, d) + min(L(p-r, d), min(L(p-r, d+-1)) + P1,
+                              m + P2'(p)) - m,     m = min_k L(p-r, k)
+
+with L_r = C where p - r lies outside the image, and S = sum_r L_r.  The
+TPU's direction families, transposed horizontal volume, lane folds, pads and
+knight parity slots were Mosaic layout devices and have no counterpart: the
+CUDA kernel (csrc/sgm_sweep.cu) walks each path line of one direction with
+one warp.
+
+Also here, from fsgm_tpu/ops/pallas/aggregate_pallas.py: ``p2_effective``
+(the P2' table, adaptive or not) and ``plan_dtypes`` (int16 S where the
+preset's bound allows it; the kernel computes in int32 either way).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from fsgm_tpu_torch.ops.kernels import _build
+
+INF = 1 << 30  # out-of-range label neighbour; INF + P2 + Cmax fits int32
+
+
+def plan_dtypes(s_max: int | None) -> torch.dtype:
+    """S storage dtype: int16 when the largest S (s_max) fits, else int32."""
+    return torch.int16 if s_max is not None and s_max < (1 << 15) \
+        else torch.int32
+
+
+def p2_effective(img: torch.Tensor, direction: Tuple[int, int], p1: int,
+                 p2: int, adaptive: bool) -> torch.Tensor:
+    """(H, W) int32 P2' for direction r: max(P1+1, P2 // max(1, |I(p) -
+    I(p - r)|)) when adaptive, else P2.  Where p - r is outside the image
+    the value is never read (L = C there), so the edge is clamped."""
+    h, w = img.shape
+    if not adaptive:
+        return torch.full((h, w), p2, dtype=torch.int32, device=img.device)
+    dy, dx = direction
+    cur = img.to(torch.int32)
+    ys = (torch.arange(h, device=img.device) - dy).clamp_(0, h - 1)
+    xs = (torch.arange(w, device=img.device) - dx).clamp_(0, w - 1)
+    pred = cur.index_select(0, ys).index_select(1, xs)
+    diff = (cur - pred).abs().clamp_(min=1)
+    return (p2 // diff).clamp_(min=p1 + 1).to(torch.int32)
+
+
+def _recurrence(prev: torch.Tensor, cost: torch.Tensor, valid: torch.Tensor,
+                p1: int, p2e: torch.Tensor) -> torch.Tensor:
+    """One DP step over (N, D) int32; golden/sgm.py::_recurrence."""
+    m = prev.amin(dim=1, keepdim=True)
+    inf = torch.full_like(prev[:, :1], INF)
+    lo = torch.cat([inf, prev[:, :-1]], dim=1)
+    hi = torch.cat([prev[:, 1:], inf], dim=1)
+    best = torch.minimum(torch.minimum(prev, torch.minimum(lo, hi) + p1),
+                         m + p2e[:, None])
+    return torch.where(valid[:, None], cost + best - m, cost)
+
+
+def sgm_sweep_plain(cost: torch.Tensor, p2e: torch.Tensor,
+                    direction: Tuple[int, int], p1: int) -> torch.Tensor:
+    """Plain PyTorch version: L_r as (H, W, D) int32.  A Python loop over
+    the scan axis, vectorised over lines x D."""
+    dy, dx = direction
+    h, w, nd = cost.shape
+    c = cost.to(torch.int32)
+    out = torch.empty_like(c)
+    if dy == 0:
+        every = torch.ones(h, dtype=torch.bool, device=cost.device)
+        xs = range(w) if dx > 0 else range(w - 1, -1, -1)
+        for i, x in enumerate(xs):
+            if i < abs(dx):
+                out[:, x] = c[:, x]
+            else:
+                out[:, x] = _recurrence(out[:, x - dx], c[:, x], every, p1,
+                                        p2e[:, x])
+        return out
+    ys = range(h) if dy > 0 else range(h - 1, -1, -1)
+    for i, y in enumerate(ys):
+        if i < abs(dy):
+            out[y] = c[y]
+            continue
+        # the predecessor row shifted by dx, INF where x - dx is outside
+        row = out[y - dy]
+        prev = torch.full_like(row, INF)
+        valid = torch.zeros(w, dtype=torch.bool, device=cost.device)
+        inside = slice(dx, None) if dx >= 0 else slice(None, dx)
+        source = slice(None, w - dx) if dx >= 0 else slice(-dx, None)
+        prev[inside] = row[source]
+        valid[inside] = True
+        out[y] = _recurrence(prev, c[y], valid, p1, p2e[y])
+    return out
+
+
+def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
+              direction: Tuple[int, int], p1: int,
+              s: torch.Tensor | None = None,
+              s_dtype: torch.dtype = torch.int16) -> torch.Tensor:
+    """Aggregate one direction: S += L_r in place and return S, or, with
+    s None, return a fresh S = L_r in s_dtype.
+
+    cost (H, W, D) u8; p2e (H, W) int32 from p2_effective; |dy|, |dx| <= 2."""
+    dy, dx = direction
+    if (dy, dx) == (0, 0) or abs(dy) > 2 or abs(dx) > 2:
+        raise ValueError(f"unsupported direction {direction}")
+    if cost.dtype != torch.uint8 or cost.dim() != 3:
+        raise TypeError("sgm_sweep takes an (H, W, D) uint8 cost volume")
+    h, w, nd = cost.shape
+    if p2e.dtype != torch.int32 or tuple(p2e.shape) != (h, w):
+        raise TypeError("sgm_sweep takes an (H, W) int32 P2' table")
+    if s is not None:
+        s_dtype = s.dtype
+        if tuple(s.shape) != (h, w, nd):
+            raise ValueError(f"S shape {tuple(s.shape)} != {(h, w, nd)}")
+    if s_dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"S dtype {s_dtype} is not int16 or int32")
+    tensors = [cost, p2e] + ([s] if s is not None else [])
+    if any(t.device != cost.device for t in tensors):
+        raise ValueError("sgm_sweep inputs lie on different devices")
+    if cost.device.type == "cpu":
+        l_r = sgm_sweep_plain(cost, p2e, direction, p1).to(s_dtype)
+        return l_r if s is None else s.add_(l_r)
+    if cost.device.type != "cuda":
+        raise ValueError(f"sgm_sweep: unsupported device {cost.device}")
+    if nd % 32 != 0 or nd > 256:
+        raise ValueError(f"sgm_sweep kernel needs D a multiple of 32 up to "
+                         f"256, got {nd}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("sgm_sweep takes contiguous tensors")
+    fresh = s is None
+    if fresh:
+        s = torch.empty((h, w, nd), dtype=s_dtype, device=cost.device)
+    if s.numel() == 0:
+        return s
+    fn = _build.load("sgm_sweep")
+    with torch.cuda.device(cost.device):
+        err = fn(cost.data_ptr(), p2e.data_ptr(), s.data_ptr(),
+                 int(s_dtype == torch.int32), int(fresh), h, w, nd, dy, dx,
+                 p1, _build.stream_of(cost))
+    _build.check(err, "sgm_sweep")
+    _build.LAUNCHES["sgm_sweep"] += 1
+    return s
+
+
+def aggregate_paths(cost: torch.Tensor, img: torch.Tensor,
+                    dirs: Sequence[Tuple[int, int]], p1: int, p2: int,
+                    adaptive_p2: bool = False,
+                    s_max: int | None = None) -> torch.Tensor:
+    """S = sum_r L_r through sgm_sweep, one launch per direction; (H, W, D)
+    in plan_dtypes(s_max)."""
+    s = None
+    for r in dirs:
+        s = sgm_sweep(cost, p2_effective(img, r, p1, p2, adaptive_p2), r, p1,
+                      s=s, s_dtype=plan_dtypes(s_max))
+    return s
+
+
+def aggregate_paths_plain(cost: torch.Tensor, img: torch.Tensor,
+                          dirs: Sequence[Tuple[int, int]], p1: int, p2: int,
+                          adaptive_p2: bool = False,
+                          s_max: int | None = None) -> torch.Tensor:
+    """aggregate_paths through sgm_sweep_plain on any device."""
+    s = sum(sgm_sweep_plain(cost, p2_effective(img, r, p1, p2, adaptive_p2),
+                            r, p1) for r in dirs)
+    return s.to(plan_dtypes(s_max))

@@ -1,0 +1,144 @@
+"""Where the time of one stereo_sgm frame goes, from torch.profiler.
+
+    python -m fsgm_tpu_torch.utils.profiling \\
+        [--preset configs/kitti_stereo.json] [--height 375] [--width 1242] \\
+        [--calls 10] [--warmup 3] [--seed 0] [--device cuda]
+
+Runs stereo_sgm on a random-dot pair of the given size at the preset's D,
+``warmup`` frames first, and prints one line per kernel name (launches per
+frame, ms per frame, share of the busy time), then the totals, and last
+the whole record as one JSON object:
+
+  * ``busy_ms``: the sum of the rows, per frame, from torch.profiler over
+    ``calls`` back-to-back frames.  On a card the rows are the device's
+    kernels (and memsets/copies); on the CPU they are the ops' self time;
+  * ``wall_ms``: one frame of ``calls`` back-to-back frames with the
+    profiler off, by CUDA events on a card and the host clock on the CPU;
+  * ``busy_share`` = busy_ms / wall_ms; on a card, 1 - busy_share is the
+    device's idle share;
+  * ``peak_mib``: the card's peak allocation over one frame (None on the
+    CPU).
+
+Counterpart, for the port's stereo path, of fsgm_tpu/utils/profiling.py.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from fsgm_tpu_torch.io import random_dot_stereo
+from fsgm_tpu_torch.models.stereo import stereo_sgm
+from fsgm_tpu_torch.params import SGMParams, load_preset
+
+KITTI_PRESET = Path(__file__).resolve().parents[2] / "configs" / \
+    "kitti_stereo.json"
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def wall_ms(fn, dev: torch.device, calls: int) -> float:
+    """Wall time of one of ``calls`` back-to-back fn() calls."""
+    _sync(dev)
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / calls
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def profile_stereo(img_l: torch.Tensor, img_r: torch.Tensor,
+                   params: SGMParams, calls: int = 10,
+                   warmup: int = 3) -> dict:
+    """The breakdown record of stereo_sgm(img_l, img_r, params) (see the
+    module docstring); the device is the images'."""
+    dev = img_l.device
+    cuda = dev.type == "cuda"
+
+    def frame():
+        return stereo_sgm(img_l, img_r, params)
+
+    for _ in range(warmup):
+        frame()
+    _sync(dev)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    with profile(activities=activities) as prof:
+        for _ in range(calls):
+            frame()
+        _sync(dev)
+    kind = DeviceType.CUDA if cuda else DeviceType.CPU
+    rows = []
+    for e in prof.key_averages():
+        us = e.self_device_time_total if cuda else e.self_cpu_time_total
+        if e.device_type == kind and us > 0:
+            rows.append({"name": e.key, "launches": e.count / calls,
+                         "ms": us / 1e3 / calls})
+    if not rows:
+        raise RuntimeError(f"torch.profiler recorded no {kind} time")
+    rows.sort(key=lambda r: -r["ms"])
+    busy = sum(r["ms"] for r in rows)
+    for r in rows:
+        r["share"] = r["ms"] / busy
+    wall = wall_ms(frame, dev, calls)
+    peak = None
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+        frame()
+        _sync(dev)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    return {"device": str(dev), "shape": [*img_l.shape, params.max_disp],
+            "calls": calls, "rows": rows, "busy_ms": busy, "wall_ms": wall,
+            "busy_share": busy / wall, "peak_mib": peak}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="fsgm_tpu_torch.utils.profiling")
+    ap.add_argument("--preset", default=str(KITTI_PRESET))
+    ap.add_argument("--height", type=int, default=375)
+    ap.add_argument("--width", type=int, default=1242)
+    ap.add_argument("--calls", type=int, default=10)
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available")
+    params = load_preset(args.preset)["sgm"]
+    il, ir, _ = random_dot_stereo(args.height, args.width, params.max_disp,
+                                  seed=args.seed)
+    dev = torch.device(args.device)
+    rec = profile_stereo(torch.from_numpy(il).to(dev),
+                         torch.from_numpy(ir).to(dev), params, args.calls,
+                         args.warmup)
+    if args.device == "cuda":
+        rec["card"] = torch.cuda.get_device_name(dev)
+    for r in rec["rows"]:
+        print(f"{r['share']:7.2%} {r['ms']:9.4f} ms/frame "
+              f"{r['launches']:6.1f} launches/frame  {r['name'][:110]}")
+    print(f"busy {rec['busy_ms']:.4f} ms/frame, wall {rec['wall_ms']:.4f} "
+          f"ms/frame, busy share {rec['busy_share']:.4f}, peak "
+          f"{rec['peak_mib']} MiB ({rec['device']}, shape {rec['shape']})")
+    print(json.dumps(rec))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,187 @@
+"""PyTorch port: the stereo main path end to end, its CLI and its imports.
+
+  * stereo_sgm on the CPU vs JAX stereo_sgm(..., "pallas_tr") (interpret
+    mode) and golden/sgm.py::sgm_stereo: invalid mask identical, valid
+    disparity within 1e-3 (f32 subpixel vs golden's f64);
+  * vs the frozen fixtures (tests/fixtures, params from
+    tools/freeze_fixtures.py): cost, S and d_int exact, disp within 1e-3;
+  * stereo_sgm_batch == per-frame stereo_sgm; the CLI on PNGs; importing
+    the port never loads jax; lr_mode="reagg" is refused, not substituted;
+    the profiler's breakdown adds up.
+The kernels themselves are checked on the card by chip_smoke.py and by the
+`cuda`-marked test here, which skips without a card.
+"""
+
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import golden.sgm as g
+from fsgm_tpu.io import kitti
+from fsgm_tpu.io.images import save_gray
+from fsgm_tpu.io.synthetic import random_dot_stereo
+from fsgm_tpu.models.stereo import stereo_sgm as jax_stereo_sgm
+import fsgm_tpu_torch
+from fsgm_tpu_torch import (SGMParams, stereo_sgm, stereo_sgm_batch,
+                            stereo_sgm_reference)
+from fsgm_tpu_torch.cli.main import main as cli_main
+from fsgm_tpu_torch.ops.census import census_transform
+from fsgm_tpu_torch.ops.kernels import aggregate, cost, extract
+from fsgm_tpu_torch.utils.profiling import profile_stereo
+
+REPO = Path(__file__).resolve().parents[1]
+FIXDIR = REPO / "tests" / "fixtures"
+sys.path.insert(0, str(REPO / "tools"))
+import freeze_fixtures as ff  # noqa: E402
+
+TOL = 1e-3
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _assert_disp_close(ours, want):
+    np.testing.assert_array_equal(ours < 0, want < 0)
+    both = ours >= 0
+    np.testing.assert_allclose(ours[both], want[both], atol=TOL)
+
+
+@pytest.fixture(scope="module")
+def small_pair():
+    il, ir, _ = random_dot_stereo(40, 56, 16, seed=7)
+    p = SGMParams(max_disp=16, p1=7, p2=60)
+    jax_disp = np.asarray(jax_stereo_sgm(jnp.asarray(il), jnp.asarray(ir),
+                                         p, "pallas_tr"))
+    return il, ir, p, jax_disp
+
+
+def test_stereo_matches_jax_pallas_tr_and_golden(small_pair):
+    il, ir, p, jax_disp = small_pair
+    ours = stereo_sgm(_t(il), _t(ir), p)
+    assert ours.dtype == torch.float32 and tuple(ours.shape) == il.shape
+    ours = ours.numpy()
+    _assert_disp_close(ours, jax_disp)
+    _assert_disp_close(ours, g.sgm_stereo(il, ir, p))
+
+
+def test_reference_pipeline_matches_kernel_path_on_cpu(small_pair):
+    il, ir, p, _ = small_pair
+    np.testing.assert_array_equal(
+        stereo_sgm(_t(il), _t(ir), p).numpy(),
+        stereo_sgm_reference(_t(il), _t(ir), p).numpy())
+
+
+@pytest.mark.parametrize("name", ["stereo_8path", "stereo_16path_adaptive"])
+def test_matches_frozen_fixture(name):
+    _, _, d, _, kw = ff.STEREO_CASES[name]
+    fx = np.load(FIXDIR / f"{name}.npz")
+    p = SGMParams(**kw)
+    il, ir = _t(fx["img_l"]), _t(fx["img_r"])
+    c = cost.census_cost(census_transform(il, p.census_window),
+                         census_transform(ir, p.census_window), d,
+                         p.invalid_cost)
+    np.testing.assert_array_equal(c.numpy(), fx["cost"])
+    s = aggregate.aggregate_paths(c, il, p.dirs, p.p1, p.p2, p.adaptive_p2,
+                                  s_max=p.s_invalid)
+    np.testing.assert_array_equal(s.numpy().astype(np.int32), fx["S"])
+    d_int = extract.extract_stereo(s, p.s_invalid, p.lr_max_diff)[0]
+    np.testing.assert_array_equal(d_int.numpy(), fx["d_int"])
+    _assert_disp_close(stereo_sgm(il, ir, p).numpy(), fx["disp"])
+
+
+def test_batch_equals_per_frame():
+    p = SGMParams(max_disp=16, p1=7, p2=60)
+    pairs = [random_dot_stereo(24, 40, 16, seed=k) for k in range(3)]
+    imgs_l = _t(np.stack([a for a, _, _ in pairs]))
+    imgs_r = _t(np.stack([b for _, b, _ in pairs]))
+    batch = stereo_sgm_batch(imgs_l, imgs_r, p)
+    assert tuple(batch.shape) == (3, 24, 40)
+    for k in range(3):
+        np.testing.assert_array_equal(
+            batch[k].numpy(), stereo_sgm(imgs_l[k], imgs_r[k], p).numpy())
+
+
+@pytest.mark.parametrize("kw", [dict(lr_mode="reagg"),
+                                dict(fill_invalid=True)])
+def test_unported_options_are_refused(kw):
+    img = torch.zeros((8, 12), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="A7"):
+        stereo_sgm(img, img, SGMParams(max_disp=16, **kw))
+
+
+def test_cli_stereo_on_cpu(tmp_path, capsys):
+    il, ir, _ = random_dot_stereo(24, 40, 16, seed=2)
+    save_gray(tmp_path / "l.png", il)
+    save_gray(tmp_path / "r.png", ir)
+    out = tmp_path / "d.png"
+    rc = cli_main(["stereo", str(tmp_path / "l.png"),
+                   str(tmp_path / "r.png"), "-o", str(out),
+                   "--preset", str(REPO / "configs" / "kitti_stereo.json"),
+                   "--device", "cpu"])
+    assert rc == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["cmd"] == "stereo" and (rec["h"], rec["w"], rec["d"]) == (
+        24, 40, 128)
+    p = fsgm_tpu_torch.load_preset(str(REPO / "configs" /
+                                       "kitti_stereo.json"))["sgm"]
+    want = stereo_sgm(_t(il), _t(ir), p).numpy()
+    got = kitti.read_disparity_png(out)
+    np.testing.assert_allclose(got[want >= 0], want[want >= 0],
+                               atol=1 / 256)
+    assert rec["valid_frac"] == round(float((want >= 0).mean()), 4)
+
+
+def test_cli_cuda_device_needs_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(SystemExit, match="cuda"):
+        cli_main(["stereo", "l.png", "r.png", "-o", str(tmp_path / "d.png"),
+                  "--max-disp", "16"])
+
+
+def test_profile_breakdown_adds_up_on_cpu():
+    il, ir, _ = random_dot_stereo(16, 24, 16, seed=3)
+    rec = profile_stereo(_t(il), _t(ir), SGMParams(max_disp=16), calls=1,
+                         warmup=0)
+    assert rec["device"] == "cpu" and rec["peak_mib"] is None
+    assert rec["rows"] and all(r["ms"] > 0 for r in rec["rows"])
+    assert sum(r["ms"] for r in rec["rows"]) == pytest.approx(rec["busy_ms"])
+    assert sum(r["share"] for r in rec["rows"]) == pytest.approx(1.0)
+    assert rec["wall_ms"] > 0 and rec["busy_share"] > 0
+
+
+def test_importing_the_port_never_loads_jax():
+    mods = [m.name for m in pkgutil.walk_packages(
+        fsgm_tpu_torch.__path__, "fsgm_tpu_torch.")
+        if not m.name.endswith("__main__")]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print('jax' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert len(mods) >= 10 and out.stdout.strip() == "False"
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_the_card(card):
+    il, ir, _ = random_dot_stereo(37, 53, 32, seed=5)
+    p = SGMParams(max_disp=32, p1=7, p2=60, adaptive_p2=True, num_paths=16)
+    tl, tr = _t(il).to(card), _t(ir).to(card)
+    ours = stereo_sgm(tl, tr, p).cpu().numpy()
+    _assert_disp_close(ours, stereo_sgm_reference(tl, tr, p).cpu().numpy())
+    _assert_disp_close(ours, g.sgm_stereo(il, ir, p))
