@@ -2,21 +2,48 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
+Two main paths: stereo (configs/kitti_stereo.json, 375x1242, D=128) and
+fSGM flow (configs/kitti_flow.json, 375x1242, 4 levels, 81 labels).
 Phases, each of which raises on failure (non-zero exit, no ok line):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. build the three kernels from fsgm_tpu_torch/csrc with nvcc;
-  2. each kernel against its plain PyTorch version on the card, exact, at
-     the KITTI shape (375x1242, D=128, random-dot pair) and at 37x53, D=32;
-  3. stereo_sgm end to end against stereo_sgm_reference (plain versions
+  1. build the five kernels from fsgm_tpu_torch/csrc, one nvcc per source,
+     all started together;
+  2. stereo kernels K1 census_cost, K2 sgm_sweep (1D labels), K3
+     extract_stereo against their plain PyTorch versions on the card,
+     exact, at the KITTI shape (random-dot pair) and at 37x53, D=32;
+  3. flow kernels K5 label_minor_from_major, K2 sgm_sweep (2D labels) and
+     K4 extract_flow against their plain versions, exact, on one flow level
+     with a non-zero prior: the config-4 level-0 shape (375x1242, 81 labels
+     padded to 96, blockwise_flow_pair(375, 1242, 8, seed=0)), and 37x53
+     with radius 2 and adaptive P2, and with an int32 S;
+  4. stereo_sgm end to end against stereo_sgm_reference (plain versions
      only): identical invalid mask, valid disparities within 1e-3, D1-all
      against the ground truth, and each kernel's launch count in that call;
-  4. stereo_sgm_batch on 4 frames equals per-frame stereo_sgm;
-  5. CUDA-event timings (median of 10 runs after warm-up): end to end and
-     each kernel against its plain version (sgm_sweep: the frame's 8
-     launches over prebuilt P2' tables).
+     stereo_sgm_batch on 4 frames equals per-frame stereo_sgm;
+  5. flow_fsgm end to end against flow_fsgm_reference at config 4:
+     identical validity planes, valid flow within 1e-3, Fl-all / EPE /
+     valid share against the ground truth, and each kernel's launch count
+     in that call; flow_fsgm_batch on 2 frames equals per-frame flow_fsgm;
+  6. CUDA-event timings (median after warm-up) of each kernel and its plain
+     version on the main paths' inputs (K2: the frame's 8 launches over
+     prebuilt P2' tables; the flow kernels at level 0), K5 beside PyTorch's
+     own axis exchange (library_ms), the device launches of the plain-torch
+     flow cost build and census, and both pipelines end to end.
 
-The run fails if anything in it loaded jax.  The last lines are the per-kernel JSON record, the card line, and
+Each kernel's bound_ms is the larger of two times for this run's shapes:
+the bytes it must move (each input read once, each output written once;
+label pad slots that no kernel reads are not counted) over 3.35 TB/s, and
+its integer operations over 67e12 op/s (the H100's float32 rate outside the
+tensor cores; the table of peaks has no int32 rate, so this bound is
+generous).  Operations per element: K1 3 (xor, popcount, select) per cost
+byte; K2 8 per label and direction for 1D labels (two shuffled neighbours,
++P1, three mins, +C-m, the warp min), 11 for 2D labels (two more neighbour
+mins); K3 6 per S value (two packed keys, two mins); K4 3 per S value
+(shift, or, min); K5 none.
+
+The run fails if anything in it loaded a module of jax, fsgm_tpu or golden.
+The last lines are the per-kernel JSON record, the card line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -32,21 +59,40 @@ import torch
 
 KITTI = (375, 1242, 128)
 SMALL = (37, 53, 32)
+FLOW_HW = (375, 1242)
+FLOW_SMALL = (37, 53)
+FLOW_MAX_MAG = 8
 SEED = 0
 DISP_TOL = 1e-3  # f32 subpixel: both sides use the same IEEE formula
+FLOW_TOL = 1e-3  # the float tail is the same torch code on both sides
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+# name: (csrc source, TPU kernel it replaces, second one, main path(s))
 SOURCES = {
     "census_cost": ("cost", "fsgm_tpu/ops/pallas/cost_tr.py:106",
-                    "fsgm_tpu/ops/pallas/cost_tr.py:264"),
+                    "fsgm_tpu/ops/pallas/cost_tr.py:264", ("stereo",)),
     "sgm_sweep": ("sgm_sweep", "fsgm_tpu/ops/pallas/aggregate_tr.py:289",
-                  None),
+                  None, ("stereo", "flow")),
     "extract_stereo": ("extract", "fsgm_tpu/ops/pallas/extract_tr.py:227",
-                       None),
+                       None, ("stereo",)),
+    "extract_flow": ("extract_flow", "fsgm_tpu/ops/pallas/extract_tr.py:387",
+                     None, ("flow",)),
+    "label_minor_from_major": (
+        "transpose", "fsgm_tpu/ops/pallas/transpose_pallas.py:83", None,
+        ("flow",)),
 }
+FOREIGN = ("jax", "fsgm_tpu", "golden")
 
 
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"FAILED: {what}")
+
+
+def foreign_modules() -> list[str]:
+    """Loaded modules of jax, the JAX package or golden/."""
+    return sorted(m for m in sys.modules if m in FOREIGN
+                  or m.startswith(tuple(r + "." for r in FOREIGN)))
 
 
 def card() -> str:
@@ -73,6 +119,27 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def device_launches(fn) -> int:
+    """Device kernels, memsets and copies of one fn() call (torch.profiler,
+    after one warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for the given work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def max_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
@@ -83,9 +150,16 @@ def pair(h, w, d, seed, dev):
     return (torch.from_numpy(il).to(dev), torch.from_numpy(ir).to(dev), gt)
 
 
+def flow_pair(h, w, seed, dev):
+    from fsgm_tpu_torch.io import blockwise_flow_pair
+    i1, i2, gt, gt_valid = blockwise_flow_pair(h, w, FLOW_MAX_MAG, seed=seed)
+    return (torch.from_numpy(i1).to(dev), torch.from_numpy(i2).to(dev), gt,
+            gt_valid)
+
+
 def check_kernels(shape, params, dev, dirs, tag: str) -> dict:
-    """Each kernel against its plain version on one input; returns the
-    largest absolute error per kernel (all must be 0)."""
+    """Each stereo kernel against its plain version on one input; returns
+    the largest absolute error per kernel (all must be 0)."""
     from fsgm_tpu_torch.ops.census import census_transform
     from fsgm_tpu_torch.ops.kernels import aggregate as agg
     from fsgm_tpu_torch.ops.kernels import cost, extract
@@ -145,15 +219,112 @@ def check_extract_ties(dev) -> None:
     print(f"extract ties/int32 volume: max_abs_err {errs}")
 
 
+def flow_level(hw, params, dev) -> dict:
+    """One flow level as the main path builds it, on a blockwise pair with a
+    non-zero prior (the ground truth, rounded, plus integer noise in
+    [-2, 2] from the seed): census, label-major cost padded to a multiple
+    of 32, and the P2' tables of the 8 directions."""
+    from fsgm_tpu_torch.ops.census import census_transform
+    from fsgm_tpu_torch.ops.cost import cost_volume_flow_major
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    from fsgm_tpu_torch.params import DIRS_8
+
+    h, w = hw
+    t1, t2, gt, _ = flow_pair(h, w, SEED, dev)
+    rng = np.random.default_rng(SEED)
+    prior = np.rint(gt) + rng.integers(-2, 3, gt.shape)
+    bu, bv = (torch.from_numpy(prior[..., k].astype(np.int32)).to(dev)
+              for k in (0, 1))
+    require(bool((bu != 0).any() and (bv != 0).any()), "prior is zero")
+    nl = params.num_labels
+    cen1 = census_transform(t1, params.census_window)
+    cen2 = census_transform(t2, params.census_window)
+    cost_m = cost_volume_flow_major(cen1, cen2, bu, bv, params.search_radius,
+                                    params.invalid_cost,
+                                    nl_pad=-(-nl // 32) * 32)
+    p2es = [agg.p2_effective(t1, r, params.p1, params.p2, params.adaptive_p2)
+            for r in DIRS_8]
+    return dict(img=t1, cost_m=cost_m, p2es=p2es, dirs=DIRS_8, nl=nl,
+                e=params.window_extent, p1=params.p1,
+                s_dtype=agg.plan_dtypes(8 * (params.invalid_cost
+                                             + params.p2)))
+
+
+def flow_sweeps(lv, cost, plain: bool = False):
+    """The level's 8 sweeps over prebuilt P2' tables: S."""
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    if plain:
+        return sum(agg.sgm_sweep_plain(cost, p2e, r, lv["p1"], lv["e"],
+                                       lv["nl"])
+                   for r, p2e in zip(lv["dirs"], lv["p2es"])
+                   ).to(lv["s_dtype"])
+    s = None
+    for r, p2e in zip(lv["dirs"], lv["p2es"]):
+        s = agg.sgm_sweep(cost, p2e, r, lv["p1"], s=s, s_dtype=lv["s_dtype"],
+                          label_ext=lv["e"], nl=lv["nl"])
+    return s
+
+
+def check_flow_kernels(hw, params, dev, tag: str) -> dict:
+    """K5, K2 (2D rule, each direction and the sum) and K4 (with and
+    without subpixel) against their plain versions on one flow level;
+    returns the largest absolute error per kernel (all must be 0)."""
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    from fsgm_tpu_torch.ops.kernels import extract, transpose
+
+    lv = flow_level(hw, params, dev)
+    c = transpose.label_minor_from_major(lv["cost_m"])
+    errs = {"label_minor_from_major": max_err(
+        c, transpose.label_minor_from_major_plain(lv["cost_m"]))}
+    require(errs["label_minor_from_major"] == 0, f"{tag} K5 != plain")
+    sweep_err = 0
+    for r, p2e in zip(lv["dirs"], lv["p2es"]):
+        got = agg.sgm_sweep(c, p2e, r, lv["p1"], s_dtype=lv["s_dtype"],
+                            label_ext=lv["e"], nl=lv["nl"])
+        want = agg.sgm_sweep_plain(c, p2e, r, lv["p1"], lv["e"], lv["nl"])
+        e = max_err(got, want)
+        require(e == 0, f"{tag} sgm_sweep 2D {r} != plain")
+        sweep_err = max(sweep_err, e)
+    s = flow_sweeps(lv, c)
+    s_ref = flow_sweeps(lv, c, plain=True)
+    e = max_err(s, s_ref)
+    require(s.dtype == s_ref.dtype and e == 0, f"{tag} flow S != plain")
+    errs["sgm_sweep"] = max(sweep_err, e)
+    k4 = 0
+    for with_sub in (True, False):
+        got = extract.extract_flow(s, lv["nl"], lv["e"], with_sub)
+        want = extract.extract_flow_plain(s, lv["nl"], lv["e"], with_sub)
+        got = (got[0],) + (got[1] + got[2] if with_sub else ())
+        want = (want[0],) + (want[1] + want[2] if with_sub else ())
+        k4 = max([k4] + [max_err(a, b) for a, b in zip(got, want)])
+    errs["extract_flow"] = k4
+    require(k4 == 0, f"{tag} extract_flow != plain")
+    print(f"{tag} flow kernels == plain (S {s.dtype}, "
+          f"{tuple(c.shape)} label-minor cost): {errs}")
+    return errs
+
+
+def merge_errs(*dicts) -> dict:
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = max(out.get(k, 0), v)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from fsgm_tpu_torch import (DIRS_16, SGMParams, load_preset, stereo_sgm,
-                                stereo_sgm_batch, stereo_sgm_reference)
-    from fsgm_tpu_torch.eval import d1_all
+    import dataclasses
+    from fsgm_tpu_torch import (DIRS_16, FlowParams, SGMParams, flow_fsgm,
+                                flow_fsgm_batch, flow_fsgm_reference,
+                                load_preset, stereo_sgm, stereo_sgm_batch,
+                                stereo_sgm_reference)
+    from fsgm_tpu_torch.eval import d1_all, fl_all
     from fsgm_tpu_torch.ops.census import census_transform
-    from fsgm_tpu_torch.ops.kernels import _build, cost, extract
+    from fsgm_tpu_torch.ops.cost import cost_volume_flow_major
+    from fsgm_tpu_torch.ops.kernels import _build, cost, extract, transpose
     from fsgm_tpu_torch.ops.kernels import aggregate as agg
 
     # 0. the card
@@ -164,33 +335,47 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    # 1. build
-    for name, (lib, _, _) in SOURCES.items():
-        t0 = time.perf_counter()
+    # 1. build: one nvcc per source, all started together
+    libs = [lib for lib, _, _, _ in SOURCES.values()]
+    require(sorted(libs) == sorted(_build.ENTRY), "a kernel is not checked")
+    t0 = time.perf_counter()
+    _build.build_all()
+    for lib in libs:
         _build.load(lib)
-        print(f"build {name} ({lib}.cu): "
-              f"{time.perf_counter() - t0:.2f} s")
+    print(f"build {', '.join(f'{lib}.cu' for lib in libs)}: "
+          f"{time.perf_counter() - t0:.2f} s")
 
-    # 2. kernels against their plain versions
+    # 2. stereo kernels against their plain versions
     params = load_preset("configs/kitti_stereo.json")["sgm"]
     errs = check_kernels(KITTI, params, dev, params.dirs, "kitti")
     small = SGMParams(max_disp=SMALL[2], p1=7, p2=60, adaptive_p2=True,
                       num_paths=16)
-    check_kernels(SMALL, small, dev, DIRS_16, "37x53 16-path adaptive")
+    errs = merge_errs(errs, check_kernels(SMALL, small, dev, DIRS_16,
+                                          "37x53 16-path adaptive"))
     wide = SGMParams(max_disp=SMALL[2], p2=7000)  # s_invalid >= 2^15: int32 S
-    check_kernels(SMALL, wide, dev, wide.dirs, "37x53 int32 S")
+    errs = merge_errs(errs, check_kernels(SMALL, wide, dev, wide.dirs,
+                                          "37x53 int32 S"))
     check_extract_ties(dev)
 
-    # 3. the main path end to end, launches counted in this call only
+    # 3. flow kernels against their plain versions
+    fparams = load_preset("configs/kitti_flow.json")["flow"]
+    errs = merge_errs(errs, check_flow_kernels(FLOW_HW, fparams, dev,
+                                               "config-4 level 0"))
+    fsmall = FlowParams(search_radius=2, levels=3, adaptive_p2=True)
+    errs = merge_errs(errs, check_flow_kernels(
+        FLOW_SMALL, fsmall, dev, "37x53 radius 2 adaptive"))
+    fwide = FlowParams(search_radius=2, levels=3, p2=5000)  # int32 S
+    errs = merge_errs(errs, check_flow_kernels(FLOW_SMALL, fwide, dev,
+                                               "37x53 radius 2 int32 S"))
+
+    # 4. the stereo path end to end, launches counted in this call only
     h, w, d = KITTI
     tl, tr, gt = pair(h, w, d, SEED, dev)
     _build.LAUNCHES.clear()
     disp = stereo_sgm(tl, tr, params)
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    print(f"launches in one stereo_sgm call: {launches}")
-    for name in SOURCES:
-        require(launches.get(name, 0) > 0, f"{name} not launched")
+    launches = {"stereo": dict(_build.LAUNCHES)}
+    print(f"launches in one stereo_sgm call: {launches['stereo']}")
     ref = stereo_sgm_reference(tl, tr, params)
     require(tuple(disp.shape) == (h, w) and bool(torch.isfinite(disp).all()),
             "disparity shape / finiteness")
@@ -199,11 +384,9 @@ def main() -> int:
     derr = float((disp[both] - ref[both]).abs().max())
     require(derr <= DISP_TOL, f"disparity error {derr} > {DISP_TOL}")
     m = d1_all(disp.cpu().numpy(), gt.astype(np.float64))
-    print(f"end to end vs plain: invalid mask equal, max |disp err| {derr}; "
-          f"D1-all {m['d1_all']:.4f} EPE {m['epe']:.4f} "
+    print(f"stereo end to end vs plain: invalid mask equal, max |disp err| "
+          f"{derr}; D1-all {m['d1_all']:.4f} EPE {m['epe']:.4f} "
           f"density {m['density']:.4f}")
-
-    # 4. batch == per-frame
     frames = [pair(h, w, d, SEED + k, dev) for k in range(4)]
     imgs_l = torch.stack([f[0] for f in frames])
     imgs_r = torch.stack([f[1] for f in frames])
@@ -213,8 +396,41 @@ def main() -> int:
     require(torch.equal(batch, per), "stereo_sgm_batch != per-frame")
     print("stereo_sgm_batch (4 frames) == per-frame stereo_sgm")
 
-    # 5. timings at the KITTI shape, each kernel on the main path's inputs;
-    # sgm_sweep is the frame's sweeps over P2' tables built beforehand
+    # 5. the flow path end to end, launches counted in this call only
+    fh, fw = FLOW_HW
+    f1, f2, fgt, fgt_valid = flow_pair(fh, fw, SEED, dev)
+    _build.LAUNCHES.clear()
+    flow, valid = flow_fsgm(f1, f2, fparams)
+    torch.cuda.synchronize()
+    launches["flow"] = dict(_build.LAUNCHES)
+    print(f"launches in one flow_fsgm call: {launches['flow']}")
+    fref, fref_valid = flow_fsgm_reference(f1, f2, fparams)
+    require(tuple(flow.shape) == (fh, fw, 2) and flow.dtype == torch.float32
+            and bool(torch.isfinite(flow).all()), "flow shape / finiteness")
+    require(torch.equal(valid, fref_valid), "validity plane != plain")
+    require(bool(valid.any()), "no flow pixel passed the fb check")
+    ferr = float((flow - fref)[valid].abs().max())
+    require(ferr <= FLOW_TOL, f"flow error {ferr} > {FLOW_TOL}")
+    fm = fl_all(flow.cpu().numpy().astype(np.float64), fgt, fgt_valid,
+                pred_valid=valid.cpu().numpy())
+    print(f"flow end to end vs plain: validity equal, max |flow err| {ferr} "
+          f"on valid pixels; Fl-all {fm['fl_all']:.4f} EPE {fm['epe']:.4f} "
+          f"valid share {float(valid.float().mean()):.4f} (density on "
+          f"ground-truth-valid pixels {fm['density']:.4f})")
+    g1, g2, _, _ = flow_pair(fh, fw, SEED + 1, dev)
+    fb, vb = flow_fsgm_batch(torch.stack([f1, g1]), torch.stack([f2, g2]),
+                             fparams)
+    fo, vo = flow_fsgm(g1, g2, fparams)
+    require(torch.equal(fb[0], flow) and torch.equal(vb[0], valid)
+            and torch.equal(fb[1], fo) and torch.equal(vb[1], vo),
+            "flow_fsgm_batch != per-frame")
+    print("flow_fsgm_batch (2 frames) == per-frame flow_fsgm")
+    for name, (_, _, _, paths) in SOURCES.items():
+        for path in paths:
+            require(launches[path].get(name, 0) > 0,
+                    f"{name} not launched on the {path} path")
+
+    # 6. timings, each kernel on its main path's inputs
     cl = census_transform(tl, params.census_window)
     cr = census_transform(tr, params.census_window)
     cost_args = (cl, cr, d, params.invalid_cost)
@@ -235,35 +451,101 @@ def main() -> int:
 
     ext_args = (sweeps(), params.s_invalid, params.lr_max_diff,
                 params.subpixel)
-    timing = {
-        "census_cost": (lambda: cost.census_cost(*cost_args),
-                        lambda: cost.census_cost_plain(*cost_args)),
-        "sgm_sweep": (sweeps, sweeps_plain),
-        "extract_stereo": (lambda: extract.extract_stereo(*ext_args),
-                           lambda: extract.extract_stereo_plain(*ext_args)),
+    lv = flow_level(FLOW_HW, fparams, dev)
+    fc = transpose.label_minor_from_major(lv["cost_m"])
+    fs = flow_sweeps(lv, fc)
+    nl, nd_f = lv["nl"], fc.shape[2]
+    hw, s_bytes = h * w, torch.tensor([], dtype=s_dtype).element_size()
+    fs_bytes = fs.element_size()
+    fhw, n_dirs = fh * fw, len(params.dirs)
+    work = {  # name: (kernel, plain, (bytes, ops), shape, library call)
+        "census_cost": (
+            lambda: cost.census_cost(*cost_args),
+            lambda: cost.census_cost_plain(*cost_args),
+            (2 * hw * 8 + hw * d, 3 * hw * d), (h, w, d), None),
+        "sgm_sweep": (
+            sweeps, sweeps_plain,
+            (hw * d + n_dirs * hw * 4 + hw * d * s_bytes,
+             8 * n_dirs * hw * d), (h, w, d), None),
+        "extract_stereo": (
+            lambda: extract.extract_stereo(*ext_args),
+            lambda: extract.extract_stereo_plain(*ext_args),
+            (hw * d * s_bytes + 5 * hw * 4, 6 * hw * d), (h, w, d), None),
+        "sgm_sweep_2d": (
+            lambda: flow_sweeps(lv, fc),
+            lambda: flow_sweeps(lv, fc, plain=True),
+            (fhw * nl + 8 * fhw * 4 + fhw * nl * fs_bytes, 11 * 8 * fhw * nl),
+            (fh, fw, nd_f), None),
+        "extract_flow": (
+            lambda: extract.extract_flow(fs, nl, lv["e"], fparams.subpixel),
+            lambda: extract.extract_flow_plain(fs, nl, lv["e"],
+                                               fparams.subpixel),
+            (fhw * nl * fs_bytes + 7 * fhw * 4, 3 * fhw * nl),
+            (fh, fw, nd_f), None),
+        "label_minor_from_major": (
+            lambda: transpose.label_minor_from_major(lv["cost_m"]),
+            lambda: transpose.label_minor_from_major_plain(lv["cost_m"]),
+            (2 * fhw * nd_f, 0), (fh, fw, nd_f),
+            lambda: lv["cost_m"].transpose(1, 2).contiguous()),
     }
-    rows = []
-    for name, (kern, plain) in timing.items():
-        lib, replaces, also = SOURCES[name]
-        plain_ms = median_ms(plain)
+    slow_plain = {"sgm_sweep", "sgm_sweep_2d"}  # Python loops: few reps
+    times = {}
+    for name, (kern, plain, (nbytes, nops), shape, lib) in work.items():
+        reps = 3 if name in slow_plain else 10
+        plain_ms = median_ms(plain, reps=reps, warmup=1)
         ms = median_ms(kern)
-        row = {"name": name, "route": "cuda",
-               "source": f"fsgm_tpu_torch/csrc/{lib}.cu",
-               "replaces": replaces, "launches": launches[name],
-               "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms}
-        if also:
-            row["also_replaces"] = also
-        rows.append(row)
-        print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"({h}x{w}x{d}; {card_line})")
+        lib_ms = median_ms(lib) if lib is not None else None
+        b_ms, b_by = bound(nbytes, nops)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib_ms)
+        lib_txt = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms by {b_by} ({nbytes} B, {nops} ops)"
+              f"{lib_txt} (shape {shape}; {card_line})")
     e2e = median_ms(lambda: stereo_sgm(tl, tr, params))
     e2e_plain = median_ms(lambda: stereo_sgm_reference(tl, tr, params))
-    rate = h * w * d / (e2e * 1e3)
     print(f"time stereo_sgm end to end: {e2e:.4f} ms/frame, "
-          f"{rate:.1f} Mpixel*disp/s; plain pipeline {e2e_plain:.4f} "
-          f"ms/frame ({h}x{w}x{d}; {card_line})")
+          f"{h * w * d / (e2e * 1e3):.1f} Mpixel*disp/s; plain pipeline "
+          f"{e2e_plain:.4f} ms/frame ({h}x{w}x{d}; {card_line})")
+    lv_args = (census_transform(f1, fparams.census_window),
+               census_transform(f2, fparams.census_window))
+    bu = torch.ones((fh, fw), dtype=torch.int32, device=dev)
 
-    require("jax" not in sys.modules, "the run loaded jax")
+    def flow_cost():
+        return cost_volume_flow_major(*lv_args, bu, -bu,
+                                      fparams.search_radius,
+                                      fparams.invalid_cost, nl_pad=nd_f)
+
+    print(f"flow cost build at level 0 (label-major, {nd_f} slots): "
+          f"{device_launches(flow_cost)} device launches, "
+          f"{median_ms(flow_cost):.4f} ms; census of one image: "
+          f"{device_launches(lambda: census_transform(f1))} launches "
+          f"({card_line})")
+    fe2e = median_ms(lambda: flow_fsgm(f1, f2, fparams))
+    fe2e_plain = median_ms(lambda: flow_fsgm_reference(f1, f2, fparams),
+                           reps=3, warmup=1)
+    print(f"time flow_fsgm end to end: {fe2e:.4f} ms/frame; plain pipeline "
+          f"{fe2e_plain:.4f} ms/frame ({fh}x{fw}, config 4: "
+          f"{dataclasses.asdict(fparams)}; {card_line})")
+
+    rows = []
+    for name, (lib, replaces, also, paths) in SOURCES.items():
+        row = {"name": name, "route": "cuda",
+               "source": f"fsgm_tpu_torch/csrc/{lib}.cu",
+               "replaces": replaces,
+               "launches": sum(launches[p].get(name, 0) for p in paths),
+               "max_abs_err": errs[name], **times[name]}
+        if also:
+            row["also_replaces"] = also
+        if len(paths) > 1:
+            row["launches_by_path"] = {p: launches[p].get(name, 0)
+                                       for p in paths}
+        if name == "sgm_sweep":  # the row's times: 1D labels, stereo frame
+            row["label_2d"] = times["sgm_sweep_2d"]
+        rows.append(row)
+
+    foreign = foreign_modules()
+    require(not foreign, f"the run loaded {foreign}")
     print(json.dumps({"kernels": rows}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -1,30 +1,41 @@
 // K2 sgm_sweep: the SGM path recurrence for one direction, summed into S.
 //
 // Replaces the TPU kernel fsgm_tpu/ops/pallas/aggregate_tr.py::tr_family_sweep
-// (kernel body _make_tr_kernel).  For one direction r = (dy, dx):
+// (kernel body _make_tr_kernel, label-neighbour rules make_tr_nmin_1d and
+// make_tr_nmin_2d).  For one direction r = (dy, dx):
 //
-//   L_r(p, d) = C(p, d) + min(L(p-r, d), min(L(p-r, d-1), L(p-r, d+1)) + P1,
-//                             m + P2'(p)) - m,        m = min_k L(p-r, k)
-//   L_r(p, d) = C(p, d) where p - r lies outside the image,
+//   L_r(p, l) = C(p, l) + min(L(p-r, l), N(p-r, l) + P1, m + P2'(p)) - m,
+//   m = min_k L(p-r, k),   L_r(p, l) = C(p, l) where p - r lies outside,
 //
-// and S = L_r (fresh) or S += L_r (read-modify-write).  Exact integer
-// arithmetic: golden/sgm.py::aggregate_one_path bit for bit.
+// and S = L_r (fresh) or S += L_r (read-modify-write).  The label
+// neighbour term N is min(L[l-1], L[l+1]) for stereo (1D labels) and, for
+// the flow's (e x e) label grid (label_ext = e), min(L[l-1], L[l+1],
+// L[l-e], L[l+e]) with l-1 absent where l % e == 0, l+1 absent where
+// l % e == e-1 and l-e, l+e absent outside [0, nl).  Only the first nl of
+// the volume's D label slots are labels: the slots past nl (a volume padded
+// to a multiple of 32) take part in no neighbour min and no m, and their S
+// stays 0.  Exact integer arithmetic: golden/sgm.py::aggregate_one_path
+// (with golden/flow.py::make_neighbor_min_2d for flow) bit for bit.
 //
 // Bound: latency of the serial chain along each path line, then
 // device-memory bytes (per pixel and direction: D cost bytes read, D S values
 // read and written).  Design, after libSGM (arXiv 1610.04121): one warp walks
 // one path line and holds that pixel's D labels in registers, K = D/32
-// consecutive labels per lane.  m is one __reduce_min_sync, the d-1 / d+1
-// neighbours across lane boundaries are one __shfl_up_sync /
-// __shfl_down_sync each, and L never leaves registers along the line.  Each
-// step's loads are coalesced (a warp reads one pixel's D cost bytes and D S
-// values) and the next pixel's cost, S and P2' are loaded before the current
-// step's arithmetic, so the load latency overlaps the recurrence.  Lines
-// start at every pixel whose predecessor p - r is outside the image (the
-// first |dy| rows in scan order, then the first |dx| columns), which covers
-// the 8 paths and the knight directions (|dy| = 2 steps two rows back) alike.
-// The launches of one frame's directions run in order on one stream, so the
-// read-modify-write of S needs no atomics.
+// consecutive labels per lane.  m is one __reduce_min_sync; the 1D
+// neighbours d-1 / d+1 across lane boundaries are one __shfl_up_sync /
+// __shfl_down_sync each.  The 2D rule's l +- e neighbours cross lanes by an
+// amount that depends on e and K, so there the warp writes its previous L
+// row to a per-warp row of shared memory and each lane reads its four
+// neighbours by index (two __syncwarp per step).  L never leaves the SM
+// along the line.  Each step's loads are coalesced (a warp reads one
+// pixel's D cost bytes and D S values) and the next pixel's cost, S and P2'
+// are loaded before the current step's arithmetic, so the load latency
+// overlaps the recurrence.  Lines start at every pixel whose predecessor
+// p - r is outside the image (the first |dy| rows in scan order, then the
+// first |dx| columns), which covers the 8 paths and the knight directions
+// (|dy| = 2 steps two rows back) alike.  The launches of one frame's
+// directions run in order on one stream, so the read-modify-write of S
+// needs no atomics.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,14 +63,18 @@ __device__ __forceinline__ void load_step(const uint8_t* __restrict__ cost,
   p2v = p2e[pix];
 }
 
-template <int K, typename ST, bool FRESH>
+template <int K, typename ST, bool FRESH, bool LABEL2D>
 __global__ void __launch_bounds__(kThreads)
 sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
-                 ST* __restrict__ s, int h, int w, int dy, int dx, int p1,
-                 int n_row_starts, int rows_rem, int n_lines) {
+                 ST* __restrict__ s, int h, int w, int nl, int ext, int dy,
+                 int dx, int p1, int n_row_starts, int rows_rem, int n_lines) {
+  constexpr int ND = 32 * K;
+  // LABEL2D: each warp's previous L row, read by label index
+  __shared__ int prev_row[LABEL2D ? kThreads / 32 : 1][LABEL2D ? ND : 1];
   const int lane = threadIdx.x & 31;
   const int line = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
   if (line >= n_lines) return;  // uniform over the warp
+  int* row = prev_row[LABEL2D ? (threadIdx.x >> 5) : 0];
   int y, x;
   if (line < n_row_starts) {
     const int i = line / w;
@@ -72,6 +87,20 @@ sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
     y = (dy > 0 ? dy : 0) + g % rows_rem;
   }
   const int d0 = lane * K;
+  // which of this lane's labels are real, and (2D) which neighbours exist
+  bool real[K], has_l[K], has_r[K], has_u[K], has_d[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int d = d0 + k;
+    real[k] = d < nl;
+    if (LABEL2D) {
+      const int u = d % ext;
+      has_l[k] = u != 0;
+      has_r[k] = u != ext - 1 && d + 1 < nl;
+      has_u[k] = d >= ext;
+      has_d[k] = d + ext < nl;
+    }
+  }
   long long pix = (long long)y * w + x;
   int c[K], sv[K], prev[K];
   int p2v;
@@ -88,29 +117,52 @@ sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
     int l[K];
     if (first) {
 #pragma unroll
-      for (int k = 0; k < K; ++k) l[k] = c[k];
+      for (int k = 0; k < K; ++k) l[k] = real[k] ? c[k] : kInf;
     } else {
       int mloc = prev[0];
 #pragma unroll
       for (int k = 1; k < K; ++k) mloc = min(mloc, prev[k]);
       const int m = __reduce_min_sync(kFull, mloc);
-      int left = __shfl_up_sync(kFull, prev[K - 1], 1);
-      int right = __shfl_down_sync(kFull, prev[0], 1);
-      if (lane == 0) left = kInf;
-      if (lane == 31) right = kInf;
       const int mp = m + p2v;
+      int nb[K];
+      if (LABEL2D) {
+        __syncwarp();  // every lane has read the row of the step before
+#pragma unroll
+        for (int k = 0; k < K; ++k) row[d0 + k] = prev[k];
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int d = d0 + k;
+          int v = kInf;
+          if (has_l[k]) v = min(v, row[d - 1]);
+          if (has_r[k]) v = min(v, row[d + 1]);
+          if (has_u[k]) v = min(v, row[d - ext]);
+          if (has_d[k]) v = min(v, row[d + ext]);
+          nb[k] = v;
+        }
+      } else {
+        int left = __shfl_up_sync(kFull, prev[K - 1], 1);
+        int right = __shfl_down_sync(kFull, prev[0], 1);
+        if (lane == 0) left = kInf;
+        if (lane == 31) right = kInf;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int lo = k == 0 ? left : prev[k - 1];
+          const int hi = k == K - 1 ? right : prev[k + 1];
+          nb[k] = min(lo, hi);  // slots past nl hold kInf
+        }
+      }
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const int lo = k == 0 ? left : prev[k - 1];
-        const int hi = k == K - 1 ? right : prev[k + 1];
-        const int best = min(min(prev[k], min(lo, hi) + p1), mp);
-        l[k] = c[k] + best - m;
+        const int best = min(min(prev[k], nb[k] + p1), mp);
+        l[k] = real[k] ? c[k] + best - m : kInf;
       }
     }
-    ST* sp = s + pix * (32 * K) + d0;
+    ST* sp = s + pix * ND + d0;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      sp[k] = (ST)(FRESH ? l[k] : sv[k] + l[k]);
+      const int add = real[k] ? l[k] : 0;
+      sp[k] = (ST)(FRESH ? add : sv[k] + add);
       prev[k] = l[k];
     }
     if (!more) break;
@@ -127,9 +179,9 @@ sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
   }
 }
 
-template <int K, typename ST, bool FRESH>
-void launch(const void* cost, const void* p2e, void* s, int h, int w, int dy,
-            int dx, int p1, cudaStream_t stream) {
+template <int K, typename ST, bool FRESH, bool LABEL2D>
+int launch(const void* cost, const void* p2e, void* s, int h, int w, int nl,
+           int ext, int dy, int dx, int p1, cudaStream_t stream) {
   const int ady = dy < 0 ? -dy : dy, adx = dx < 0 ? -dx : dx;
   const int row_band = ady < h ? ady : h;
   const int n_row_starts = row_band * w;
@@ -137,42 +189,56 @@ void launch(const void* cost, const void* p2e, void* s, int h, int w, int dy,
   const int n_lines = n_row_starts + rows_rem * (adx < w ? adx : w);
   const int per_block = kThreads / 32;
   const int blocks = (n_lines + per_block - 1) / per_block;
-  sgm_sweep_kernel<K, ST, FRESH><<<blocks, kThreads, 0, stream>>>(
-      (const uint8_t*)cost, (const int*)p2e, (ST*)s, h, w, dy, dx, p1,
+  sgm_sweep_kernel<K, ST, FRESH, LABEL2D><<<blocks, kThreads, 0, stream>>>(
+      (const uint8_t*)cost, (const int*)p2e, (ST*)s, h, w, nl, ext, dy, dx, p1,
       n_row_starts, rows_rem, n_lines);
+  return (int)cudaGetLastError();
 }
 
-template <typename ST, bool FRESH>
+template <typename ST, bool FRESH, bool LABEL2D>
 int dispatch(int k, const void* cost, const void* p2e, void* s, int h, int w,
-             int dy, int dx, int p1, cudaStream_t st) {
+             int nl, int ext, int dy, int dx, int p1, cudaStream_t st) {
   switch (k) {
-    case 1: launch<1, ST, FRESH>(cost, p2e, s, h, w, dy, dx, p1, st); break;
-    case 2: launch<2, ST, FRESH>(cost, p2e, s, h, w, dy, dx, p1, st); break;
-    case 3: launch<3, ST, FRESH>(cost, p2e, s, h, w, dy, dx, p1, st); break;
-    case 4: launch<4, ST, FRESH>(cost, p2e, s, h, w, dy, dx, p1, st); break;
-    case 5: launch<5, ST, FRESH>(cost, p2e, s, h, w, dy, dx, p1, st); break;
-    case 6: launch<6, ST, FRESH>(cost, p2e, s, h, w, dy, dx, p1, st); break;
-    case 7: launch<7, ST, FRESH>(cost, p2e, s, h, w, dy, dx, p1, st); break;
-    case 8: launch<8, ST, FRESH>(cost, p2e, s, h, w, dy, dx, p1, st); break;
+#define FSGM_CASE(KK)                                                       \
+  case KK:                                                                  \
+    return launch<KK, ST, FRESH, LABEL2D>(cost, p2e, s, h, w, nl, ext, dy, \
+                                          dx, p1, st);
+    FSGM_CASE(1) FSGM_CASE(2) FSGM_CASE(3) FSGM_CASE(4)
+    FSGM_CASE(5) FSGM_CASE(6) FSGM_CASE(7) FSGM_CASE(8)
+#undef FSGM_CASE
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+}
+
+template <typename ST>
+int dispatch_mode(int fresh, int label2d, int k, const void* cost,
+                  const void* p2e, void* s, int h, int w, int nl, int ext,
+                  int dy, int dx, int p1, cudaStream_t st) {
+  if (label2d) {
+    return fresh ? dispatch<ST, true, true>(k, cost, p2e, s, h, w, nl, ext, dy, dx, p1, st)
+                 : dispatch<ST, false, true>(k, cost, p2e, s, h, w, nl, ext, dy, dx, p1, st);
+  }
+  return fresh ? dispatch<ST, true, false>(k, cost, p2e, s, h, w, nl, ext, dy, dx, p1, st)
+               : dispatch<ST, false, false>(k, cost, p2e, s, h, w, nl, ext, dy, dx, p1, st);
 }
 
 }  // namespace
 
 // cost (H, W, D) u8, p2e (H, W) int32 P2' of this direction, s (H, W, D)
-// int16 (s_int32 = 0) or int32; D a multiple of 32 up to 256.
+// int16 (s_int32 = 0) or int32; D a multiple of 32 up to 256, of which the
+// first nl slots are labels.  label_ext = 0: 1D labels; e >= 1: the e x e
+// label grid (nl = e * e).
 extern "C" int fsgm_sgm_sweep(const void* cost, const void* p2e, void* s,
                               int s_int32, int fresh, int h, int w, int nd,
-                              int dy, int dx, int p1, void* stream) {
-  if (nd % 32 != 0) return (int)cudaErrorInvalidValue;
+                              int nl, int label_ext, int dy, int dx, int p1,
+                              void* stream) {
+  if (nd % 32 != 0 || nl < 1 || nl > nd || label_ext < 0)
+    return (int)cudaErrorInvalidValue;
   const int k = nd / 32;
+  const int label2d = label_ext > 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (s_int32) {
-    return fresh ? dispatch<int32_t, true>(k, cost, p2e, s, h, w, dy, dx, p1, st)
-                 : dispatch<int32_t, false>(k, cost, p2e, s, h, w, dy, dx, p1, st);
-  }
-  return fresh ? dispatch<int16_t, true>(k, cost, p2e, s, h, w, dy, dx, p1, st)
-               : dispatch<int16_t, false>(k, cost, p2e, s, h, w, dy, dx, p1, st);
+  return s_int32 ? dispatch_mode<int32_t>(fresh, label2d, k, cost, p2e, s, h, w,
+                                          nl, label_ext, dy, dx, p1, st)
+                 : dispatch_mode<int16_t>(fresh, label2d, k, cost, p2e, s, h, w,
+                                          nl, label_ext, dy, dx, p1, st);
 }

@@ -1,0 +1,86 @@
+"""Flow cost volumes in plain PyTorch (the JAX package builds them in XLA).
+
+Counterpart of fsgm_tpu/ops/cost.py::_flow_cost_planes, cost_volume_flow
+and cost_volume_flow_major, untiled.  Over the (2w+1)^2 label window
+centred on the rounded prior flow, label l = (dv+w)*(2w+1) + (du+w):
+
+    cen2w[y, x]  = cen2[y + base_v, x + base_u]    (warp once, per pixel)
+    C[y, x, l]   = popcount(cen1[y, x] ^ cen2w[y + dv, x + du]),
+                   invalid_cost where (y + dv, x + du) or its warp source
+                   lies outside the image.
+
+Vectorised over labels: one gather warps the descriptors, a zero / False
+border of w pixels makes every window position addressable, and one
+strided copy of the (2w+1) x (2w+1) windows feeds a few whole-volume
+integer ops, so a build is a few dozen launches whatever the label count.
+The JAX package's block warp (warp_census_blocked) and its identity-base
+shortcut at the coarsest level are gathers with identical values and are
+not ported: the per-pixel gather serves every level.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fsgm_tpu_torch.ops.census import hamming
+
+
+def _warped_windows(cen1: torch.Tensor, cen2: torch.Tensor,
+                    base_u: torch.Tensor, base_v: torch.Tensor, radius: int):
+    """Views (H, W, e, e) of the warped descriptors and their validity at
+    window position [y, x, dv + w, du + w] (e = 2w + 1)."""
+    h, w = cen1.shape
+    dev = cen1.device
+    yy = torch.arange(h, device=dev, dtype=torch.int32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.int32)[None, :]
+    sy = yy + base_v
+    sx = xx + base_u
+    ok_w = (sy >= 0) & (sy < h) & (sx >= 0) & (sx < w)
+    src = sy.clamp(0, h - 1).to(torch.int64) * w + sx.clamp(0, w - 1)
+    r, e = radius, 2 * radius + 1
+    cen2w = torch.zeros((h + 2 * r, w + 2 * r), dtype=cen2.dtype, device=dev)
+    ok = torch.zeros((h + 2 * r, w + 2 * r), dtype=torch.bool, device=dev)
+    cen2w[r:r + h, r:r + w] = cen2.reshape(-1)[src]
+    ok[r:r + h, r:r + w] = ok_w
+    return (cen2w.unfold(0, e, 1).unfold(1, e, 1),
+            ok.unfold(0, e, 1).unfold(1, e, 1))
+
+
+def _cost(cen1_b: torch.Tensor, win: torch.Tensor, ok: torch.Tensor,
+          invalid_cost: int) -> torch.Tensor:
+    return torch.where(ok, hamming(cen1_b, win),
+                       invalid_cost).to(torch.uint8)
+
+
+def cost_volume_flow(cen1: torch.Tensor, cen2: torch.Tensor,
+                     base_u: torch.Tensor, base_v: torch.Tensor,
+                     radius: int, invalid_cost: int = 255) -> torch.Tensor:
+    """(H, W, (2w+1)^2) uint8 label-minor flow cost volume: the plain
+    reference, and golden/flow.py::cost_volume_flow's values."""
+    h, w = cen1.shape
+    nl = (2 * radius + 1) ** 2
+    win, ok = _warped_windows(cen1, cen2, base_u, base_v, radius)
+    return _cost(cen1[:, :, None], win.reshape(h, w, nl),
+                 ok.reshape(h, w, nl), invalid_cost)
+
+
+def cost_volume_flow_major(cen1: torch.Tensor, cen2: torch.Tensor,
+                           base_u: torch.Tensor, base_v: torch.Tensor,
+                           radius: int, invalid_cost: int = 255,
+                           nl_pad: int | None = None) -> torch.Tensor:
+    """(H, nl_pad, W) uint8 label-major flow cost volume: label l's plane
+    at [:, l, :], contiguous along W; planes past (2w+1)^2 up to nl_pad
+    hold invalid_cost.  Same values as cost_volume_flow."""
+    h, w = cen1.shape
+    nl = (2 * radius + 1) ** 2
+    nl_pad = nl if nl_pad is None else nl_pad
+    if nl_pad < nl:
+        raise ValueError(f"nl_pad {nl_pad} < {nl} labels")
+    win, ok = _warped_windows(cen1, cen2, base_u, base_v, radius)
+    out = torch.full((h, nl_pad, w), invalid_cost, dtype=torch.uint8,
+                     device=cen1.device)
+    out[:, :nl] = _cost(cen1[:, None, :],
+                        win.permute(0, 2, 3, 1).reshape(h, nl, w),
+                        ok.permute(0, 2, 3, 1).reshape(h, nl, w),
+                        invalid_cost)
+    return out

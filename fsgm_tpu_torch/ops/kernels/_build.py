@@ -21,6 +21,7 @@ adds one where it launches its kernel, and nowhere else.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -41,10 +42,13 @@ _I = ctypes.c_int
 # C signature of each library's entry point: (symbol, argtypes)
 ENTRY = {
     "cost": ("fsgm_census_cost", [_P, _P, _P, _I, _I, _I, _I, _P]),
-    "sgm_sweep": ("fsgm_sgm_sweep",
-                  [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sgm_sweep": ("fsgm_sgm_sweep", [_P, _P, _P] + [_I] * 10 + [_P]),
     "extract": ("fsgm_extract_stereo",
                 [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "extract_flow": ("fsgm_extract_flow",
+                     [_P, _I] + [_P] * 7 + [_I] * 6 + [_P]),
+    "transpose": ("fsgm_label_minor_from_major",
+                  [_P, _P, _I, _I, _I, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -86,6 +90,13 @@ def build_library(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return lib
+
+
+def build_all() -> list[Path]:
+    """Build every library of ENTRY at once: one nvcc process per source,
+    all started together."""
+    with concurrent.futures.ThreadPoolExecutor(len(ENTRY)) as pool:
+        return list(pool.map(build_library, ENTRY))
 
 
 @functools.cache

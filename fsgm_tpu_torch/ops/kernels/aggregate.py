@@ -3,14 +3,20 @@
 Replaces fsgm_tpu/ops/pallas/aggregate_tr.py::tr_family_sweep (and its
 entry aggregate_paths_tr) on the label-minor (H, W, D) volume:
 
-    L_r(p, d) = C(p, d) + min(L(p-r, d), min(L(p-r, d+-1)) + P1,
+    L_r(p, l) = C(p, l) + min(L(p-r, l), N(p-r, l) + P1,
                               m + P2'(p)) - m,     m = min_k L(p-r, k)
 
 with L_r = C where p - r lies outside the image, and S = sum_r L_r.  The
-TPU's direction families, transposed horizontal volume, lane folds, pads and
-knight parity slots were Mosaic layout devices and have no counterpart: the
-CUDA kernel (csrc/sgm_sweep.cu) walks each path line of one direction with
-one warp.
+neighbour term N is min(L[l-1], L[l+1]) for stereo's 1D labels
+(make_tr_nmin_1d) and, with ``label_ext = e``, the 4-neighbour min over
+flow's (e x e) label grid (make_tr_nmin_2d; golden/flow.py::
+make_neighbor_min_2d).  ``nl`` is the number of real labels: a volume whose
+D slots are padded past nl (the kernel takes D a multiple of 32) keeps the
+pad slots out of every neighbour min and every m, and its S is 0 there.
+The TPU's direction families, transposed horizontal volume, lane folds,
+pads and knight parity slots were Mosaic layout devices and have no
+counterpart: the CUDA kernel (csrc/sgm_sweep.cu) walks each path line of
+one direction with one warp.
 
 Also here, from fsgm_tpu/ops/pallas/aggregate_pallas.py: ``p2_effective``
 (the P2' table, adaptive or not) and ``plan_dtypes`` (int16 S where the
@@ -51,67 +57,107 @@ def p2_effective(img: torch.Tensor, direction: Tuple[int, int], p1: int,
     return (p2 // diff).clamp_(min=p1 + 1).to(torch.int32)
 
 
+def _neighbor_min(prev: torch.Tensor, label_ext: int | None
+                  ) -> torch.Tensor:
+    """N over (N, nl) int32: min of the label neighbours, INF where none."""
+    n, nl = prev.shape
+    if label_ext is None:
+        inf = torch.full_like(prev[:, :1], INF)
+        return torch.minimum(torch.cat([inf, prev[:, :-1]], dim=1),
+                             torch.cat([prev[:, 1:], inf], dim=1))
+    e = label_ext
+    g = prev.reshape(n, e, e)                 # [., dv, du]
+    inf_row = torch.full_like(g[:, :1, :], INF)
+    inf_col = torch.full_like(g[:, :, :1], INF)
+    up = torch.cat([inf_row, g[:, :-1, :]], dim=1)
+    down = torch.cat([g[:, 1:, :], inf_row], dim=1)
+    left = torch.cat([inf_col, g[:, :, :-1]], dim=2)
+    right = torch.cat([g[:, :, 1:], inf_col], dim=2)
+    m = torch.minimum(torch.minimum(up, down), torch.minimum(left, right))
+    return m.reshape(n, nl)
+
+
 def _recurrence(prev: torch.Tensor, cost: torch.Tensor, valid: torch.Tensor,
-                p1: int, p2e: torch.Tensor) -> torch.Tensor:
-    """One DP step over (N, D) int32; golden/sgm.py::_recurrence."""
+                p1: int, p2e: torch.Tensor, label_ext: int | None
+                ) -> torch.Tensor:
+    """One DP step over (N, nl) int32; golden/sgm.py::_recurrence."""
     m = prev.amin(dim=1, keepdim=True)
-    inf = torch.full_like(prev[:, :1], INF)
-    lo = torch.cat([inf, prev[:, :-1]], dim=1)
-    hi = torch.cat([prev[:, 1:], inf], dim=1)
-    best = torch.minimum(torch.minimum(prev, torch.minimum(lo, hi) + p1),
-                         m + p2e[:, None])
+    best = torch.minimum(
+        torch.minimum(prev, _neighbor_min(prev, label_ext) + p1),
+        m + p2e[:, None])
     return torch.where(valid[:, None], cost + best - m, cost)
 
 
+def _labels(nd: int, label_ext: int | None, nl: int | None) -> int:
+    """The real label count, checked against the volume's D slots."""
+    nl = nd if nl is None else nl
+    if not 0 < nl <= nd:
+        raise ValueError(f"nl = {nl} must lie in [1, D = {nd}]")
+    if label_ext is not None and (label_ext < 1
+                                  or label_ext * label_ext != nl):
+        raise ValueError(f"label_ext {label_ext} needs nl = label_ext^2, "
+                         f"got {nl}")
+    return nl
+
+
 def sgm_sweep_plain(cost: torch.Tensor, p2e: torch.Tensor,
-                    direction: Tuple[int, int], p1: int) -> torch.Tensor:
-    """Plain PyTorch version: L_r as (H, W, D) int32.  A Python loop over
-    the scan axis, vectorised over lines x D."""
+                    direction: Tuple[int, int], p1: int,
+                    label_ext: int | None = None,
+                    nl: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version: L_r as (H, W, D) int32, 0 in the slots past
+    nl.  A Python loop over the scan axis, vectorised over lines x labels."""
     dy, dx = direction
     h, w, nd = cost.shape
-    c = cost.to(torch.int32)
-    out = torch.empty_like(c)
+    nl = _labels(nd, label_ext, nl)
+    c = cost[..., :nl].to(torch.int32)
+    out = torch.zeros((h, w, nd), dtype=torch.int32, device=cost.device)
     if dy == 0:
         every = torch.ones(h, dtype=torch.bool, device=cost.device)
         xs = range(w) if dx > 0 else range(w - 1, -1, -1)
         for i, x in enumerate(xs):
             if i < abs(dx):
-                out[:, x] = c[:, x]
+                out[:, x, :nl] = c[:, x]
             else:
-                out[:, x] = _recurrence(out[:, x - dx], c[:, x], every, p1,
-                                        p2e[:, x])
+                out[:, x, :nl] = _recurrence(out[:, x - dx, :nl], c[:, x],
+                                             every, p1, p2e[:, x], label_ext)
         return out
     ys = range(h) if dy > 0 else range(h - 1, -1, -1)
     for i, y in enumerate(ys):
         if i < abs(dy):
-            out[y] = c[y]
+            out[y, :, :nl] = c[y]
             continue
         # the predecessor row shifted by dx, INF where x - dx is outside
-        row = out[y - dy]
+        row = out[y - dy, :, :nl]
         prev = torch.full_like(row, INF)
         valid = torch.zeros(w, dtype=torch.bool, device=cost.device)
         inside = slice(dx, None) if dx >= 0 else slice(None, dx)
         source = slice(None, w - dx) if dx >= 0 else slice(-dx, None)
         prev[inside] = row[source]
         valid[inside] = True
-        out[y] = _recurrence(prev, c[y], valid, p1, p2e[y])
+        out[y, :, :nl] = _recurrence(prev, c[y], valid, p1, p2e[y],
+                                     label_ext)
     return out
 
 
 def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
               direction: Tuple[int, int], p1: int,
               s: torch.Tensor | None = None,
-              s_dtype: torch.dtype = torch.int16) -> torch.Tensor:
+              s_dtype: torch.dtype = torch.int16,
+              label_ext: int | None = None,
+              nl: int | None = None) -> torch.Tensor:
     """Aggregate one direction: S += L_r in place and return S, or, with
     s None, return a fresh S = L_r in s_dtype.
 
-    cost (H, W, D) u8; p2e (H, W) int32 from p2_effective; |dy|, |dx| <= 2."""
+    cost (H, W, D) u8 whose first nl (default D) slots are labels; p2e
+    (H, W) int32 from p2_effective; |dy|, |dx| <= 2; label_ext e: the
+    labels form an (e x e) grid (flow), None: a line (stereo)."""
     dy, dx = direction
     if (dy, dx) == (0, 0) or abs(dy) > 2 or abs(dx) > 2:
         raise ValueError(f"unsupported direction {direction}")
     if cost.dtype != torch.uint8 or cost.dim() != 3:
         raise TypeError("sgm_sweep takes an (H, W, D) uint8 cost volume")
     h, w, nd = cost.shape
+    nl = _labels(nd, label_ext, nl)
     if p2e.dtype != torch.int32 or tuple(p2e.shape) != (h, w):
         raise TypeError("sgm_sweep takes an (H, W) int32 P2' table")
     if s is not None:
@@ -124,7 +170,8 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
     if any(t.device != cost.device for t in tensors):
         raise ValueError("sgm_sweep inputs lie on different devices")
     if cost.device.type == "cpu":
-        l_r = sgm_sweep_plain(cost, p2e, direction, p1).to(s_dtype)
+        l_r = sgm_sweep_plain(cost, p2e, direction, p1, label_ext,
+                              nl).to(s_dtype)
         return l_r if s is None else s.add_(l_r)
     if cost.device.type != "cuda":
         raise ValueError(f"sgm_sweep: unsupported device {cost.device}")
@@ -141,8 +188,8 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
     fn = _build.load("sgm_sweep")
     with torch.cuda.device(cost.device):
         err = fn(cost.data_ptr(), p2e.data_ptr(), s.data_ptr(),
-                 int(s_dtype == torch.int32), int(fresh), h, w, nd, dy, dx,
-                 p1, _build.stream_of(cost))
+                 int(s_dtype == torch.int32), int(fresh), h, w, nd, nl,
+                 label_ext or 0, dy, dx, p1, _build.stream_of(cost))
     _build.check(err, "sgm_sweep")
     _build.LAUNCHES["sgm_sweep"] += 1
     return s
@@ -151,21 +198,26 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
 def aggregate_paths(cost: torch.Tensor, img: torch.Tensor,
                     dirs: Sequence[Tuple[int, int]], p1: int, p2: int,
                     adaptive_p2: bool = False,
-                    s_max: int | None = None) -> torch.Tensor:
+                    s_max: int | None = None,
+                    label_ext: int | None = None,
+                    nl: int | None = None) -> torch.Tensor:
     """S = sum_r L_r through sgm_sweep, one launch per direction; (H, W, D)
     in plan_dtypes(s_max)."""
     s = None
     for r in dirs:
         s = sgm_sweep(cost, p2_effective(img, r, p1, p2, adaptive_p2), r, p1,
-                      s=s, s_dtype=plan_dtypes(s_max))
+                      s=s, s_dtype=plan_dtypes(s_max), label_ext=label_ext,
+                      nl=nl)
     return s
 
 
 def aggregate_paths_plain(cost: torch.Tensor, img: torch.Tensor,
                           dirs: Sequence[Tuple[int, int]], p1: int, p2: int,
                           adaptive_p2: bool = False,
-                          s_max: int | None = None) -> torch.Tensor:
+                          s_max: int | None = None,
+                          label_ext: int | None = None,
+                          nl: int | None = None) -> torch.Tensor:
     """aggregate_paths through sgm_sweep_plain on any device."""
     s = sum(sgm_sweep_plain(cost, p2_effective(img, r, p1, p2, adaptive_p2),
-                            r, p1) for r in dirs)
+                            r, p1, label_ext, nl) for r in dirs)
     return s.to(plan_dtypes(s_max))

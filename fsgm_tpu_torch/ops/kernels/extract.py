@@ -1,9 +1,8 @@
-"""K3 extract_stereo: WTA, subpixel neighbourhood, right-view WTA and LR
-validity in one pass over S.
+"""K3 extract_stereo and K4 extract_flow: the extraction passes over S.
 
-Replaces fsgm_tpu/ops/pallas/extract_tr.py::extract_stereo_major as the main
-path calls it (with_sub, with_rwta, with_lr).  From the label-minor
-(H, W, D) S it returns five (H, W) int32 planes:
+K3 replaces fsgm_tpu/ops/pallas/extract_tr.py::extract_stereo_major as the
+stereo main path calls it (with_sub, with_rwta, with_lr).  From the
+label-minor (H, W, D) S it returns five (H, W) int32 planes:
 
     d_int          argmin_d S, smallest d on ties
     s_m, s_0, s_p  S[d*-1], S[d*], S[d*+1] (BIG = 1 << 24 out of range)
@@ -11,8 +10,15 @@ path calls it (with_sub, with_rwta, with_lr).  From the label-minor
                    dr = rint(subpixel d*) (d* without subpixel) and rho the
                    right-view WTA argmin_d S(y, x+d, d), s_invalid past W
 
-``extract_stereo`` launches the CUDA kernel (csrc/extract.cu) for CUDA
-tensors and takes ``extract_stereo_plain`` for CPU tensors.
+K4 replaces fsgm_tpu/ops/pallas/extract_tr.py::extract_flow_major.  From
+the label-minor flow S, whose first nl = e * e slots are the (e x e) label
+grid, it returns l_int = argmin_l S (smallest l on ties) and, with
+subpixel, the u and v triples of S at the clipped neighbour labels that
+models/flow.py::subpixel_flow feeds to its parabola.
+
+``extract_stereo`` / ``extract_flow`` launch the CUDA kernels
+(csrc/extract.cu, csrc/extract_flow.cu) for CUDA tensors and take the
+``*_plain`` versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -68,3 +74,56 @@ def extract_stereo(s: torch.Tensor, s_invalid: int, max_diff: int = 1,
     _build.check(err, "extract_stereo")
     _build.LAUNCHES["extract_stereo"] += 1
     return tuple(outs)
+
+
+def extract_flow_plain(s: torch.Tensor, nl: int, label_ext: int,
+                       with_sub: bool = True):
+    """Plain PyTorch version: packed-min WTA over the first nl labels, then
+    one gather of the six clipped neighbour labels."""
+    e = label_ext
+    sv = s[..., :nl].to(torch.int32)
+    l_int = ext.wta(sv)
+    if not with_sub:
+        return l_int, None, None
+    iv = l_int // e
+    iu = l_int - iv * e
+    bu = iv * e + iu.clamp(1, e - 2)
+    bv = iv.clamp(1, e - 2) * e + iu
+    idx = torch.stack([bu - 1, bu, bu + 1, bv - e, bv, bv + e], dim=-1)
+    vals = torch.gather(sv, -1, idx.to(torch.int64)).unbind(-1)
+    return l_int, vals[:3], vals[3:]
+
+
+def extract_flow(s: torch.Tensor, nl: int, label_ext: int,
+                 with_sub: bool = True):
+    """(H, W, D) int16/int32 flow S with nl = label_ext^2 real labels ->
+    (l_int, (u_m, u_0, u_p), (v_m, v_0, v_p)), each (H, W) int32; the
+    triples are None without with_sub."""
+    if s.dtype not in (torch.int16, torch.int32) or s.dim() != 3:
+        raise TypeError("extract_flow takes an (H, W, D) int16/int32 S")
+    h, w, nd = s.shape
+    if label_ext < 3 or nl != label_ext ** 2 or nl > min(nd, 255):
+        raise ValueError(f"extract_flow needs label_ext >= 3 and nl = "
+                         f"label_ext^2 <= min(D, 255), got label_ext "
+                         f"{label_ext}, nl {nl}, D {nd}")
+    if s.device.type == "cpu":
+        return extract_flow_plain(s, nl, label_ext, with_sub)
+    if s.device.type != "cuda":
+        raise ValueError(f"extract_flow: unsupported device {s.device}")
+    if nd % 32 != 0 or nd > 256 or not s.is_contiguous():
+        raise ValueError(f"extract_flow kernel needs a contiguous S with D "
+                         f"a multiple of 32 up to 256, got {tuple(s.shape)}")
+    outs = [torch.empty((h, w), dtype=torch.int32, device=s.device)
+            for _ in range(7 if with_sub else 1)]
+    if s.numel() > 0:
+        ptrs = [o.data_ptr() for o in outs]
+        ptrs += [ptrs[0]] * (7 - len(ptrs))  # never written without with_sub
+        fn = _build.load("extract_flow")
+        with torch.cuda.device(s.device):
+            err = fn(s.data_ptr(), int(s.dtype == torch.int32), *ptrs, h, w,
+                     nd, nl, label_ext, int(with_sub), _build.stream_of(s))
+        _build.check(err, "extract_flow")
+        _build.LAUNCHES["extract_flow"] += 1
+    if not with_sub:
+        return outs[0], None, None
+    return outs[0], tuple(outs[1:4]), tuple(outs[4:7])

@@ -1,13 +1,16 @@
-"""Where the time of one stereo_sgm frame goes, from torch.profiler.
+"""Where the time of one frame goes, from torch.profiler.
 
-    python -m fsgm_tpu_torch.utils.profiling \\
+    python -m fsgm_tpu_torch.utils.profiling [--pipeline stereo|flow] \\
         [--preset configs/kitti_stereo.json] [--height 375] [--width 1242] \\
         [--calls 10] [--warmup 3] [--seed 0] [--device cuda]
 
-Runs stereo_sgm on a random-dot pair of the given size at the preset's D,
-``warmup`` frames first, and prints one line per kernel name (launches per
-frame, ms per frame, share of the busy time), then the totals, and last
-the whole record as one JSON object:
+``--pipeline stereo`` (the default) runs stereo_sgm on a random-dot pair
+of the given size at the preset's D (default preset configs/kitti_stereo.json);
+``--pipeline flow`` runs flow_fsgm on a blockwise_flow_pair of that size
+with motion up to 8 px (default preset configs/kitti_flow.json).  Each runs
+``warmup`` frames first, then prints one line per kernel name (launches per
+frame, ms per frame, share of the busy time), then the totals, and last the
+whole record as one JSON object:
 
   * ``busy_ms``: the sum of the rows, per frame, from torch.profiler over
     ``calls`` back-to-back frames.  On a card the rows are the device's
@@ -19,7 +22,7 @@ the whole record as one JSON object:
   * ``peak_mib``: the card's peak allocation over one frame (None on the
     CPU).
 
-Counterpart, for the port's stereo path, of fsgm_tpu/utils/profiling.py.
+Counterpart, for the port, of fsgm_tpu/utils/profiling.py.
 """
 
 from __future__ import annotations
@@ -33,12 +36,15 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from fsgm_tpu_torch.io import random_dot_stereo
+from fsgm_tpu_torch.io import blockwise_flow_pair, random_dot_stereo
+from fsgm_tpu_torch.models.flow import flow_fsgm
 from fsgm_tpu_torch.models.stereo import stereo_sgm
-from fsgm_tpu_torch.params import SGMParams, load_preset
+from fsgm_tpu_torch.params import FlowParams, SGMParams, load_preset
 
-KITTI_PRESET = Path(__file__).resolve().parents[2] / "configs" / \
-    "kitti_stereo.json"
+CONFIGS = Path(__file__).resolve().parents[2] / "configs"
+PRESETS = {"stereo": CONFIGS / "kitti_stereo.json",
+           "flow": CONFIGS / "kitti_flow.json"}
+FLOW_MAX_MAG = 8  # px of motion in the flow pipeline's synthetic pair
 
 
 def _sync(dev: torch.device) -> None:
@@ -64,17 +70,11 @@ def wall_ms(fn, dev: torch.device, calls: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
-def profile_stereo(img_l: torch.Tensor, img_r: torch.Tensor,
-                   params: SGMParams, calls: int = 10,
+def profile_frames(frame, dev: torch.device, calls: int = 10,
                    warmup: int = 3) -> dict:
-    """The breakdown record of stereo_sgm(img_l, img_r, params) (see the
-    module docstring); the device is the images'."""
-    dev = img_l.device
+    """The breakdown record of ``frame()`` on device ``dev`` (see the module
+    docstring)."""
     cuda = dev.type == "cuda"
-
-    def frame():
-        return stereo_sgm(img_l, img_r, params)
-
     for _ in range(warmup):
         frame()
     _sync(dev)
@@ -104,14 +104,36 @@ def profile_stereo(img_l: torch.Tensor, img_r: torch.Tensor,
         frame()
         _sync(dev)
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
-    return {"device": str(dev), "shape": [*img_l.shape, params.max_disp],
-            "calls": calls, "rows": rows, "busy_ms": busy, "wall_ms": wall,
-            "busy_share": busy / wall, "peak_mib": peak}
+    return {"device": str(dev), "calls": calls, "rows": rows,
+            "busy_ms": busy, "wall_ms": wall, "busy_share": busy / wall,
+            "peak_mib": peak}
+
+
+def profile_stereo(img_l: torch.Tensor, img_r: torch.Tensor,
+                   params: SGMParams, calls: int = 10,
+                   warmup: int = 3) -> dict:
+    """The breakdown record of stereo_sgm(img_l, img_r, params); the device
+    is the images'."""
+    rec = profile_frames(lambda: stereo_sgm(img_l, img_r, params),
+                         img_l.device, calls, warmup)
+    return {"pipeline": "stereo", "shape": [*img_l.shape, params.max_disp],
+            **rec}
+
+
+def profile_flow(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
+                 calls: int = 10, warmup: int = 3) -> dict:
+    """The breakdown record of flow_fsgm(img1, img2, params); the device is
+    the images'."""
+    rec = profile_frames(lambda: flow_fsgm(img1, img2, params),
+                         img1.device, calls, warmup)
+    return {"pipeline": "flow", "shape": [*img1.shape, params.num_labels],
+            **rec}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="fsgm_tpu_torch.utils.profiling")
-    ap.add_argument("--preset", default=str(KITTI_PRESET))
+    ap.add_argument("--pipeline", default="stereo", choices=sorted(PRESETS))
+    ap.add_argument("--preset", help="default: configs/kitti_<pipeline>.json")
     ap.add_argument("--height", type=int, default=375)
     ap.add_argument("--width", type=int, default=1242)
     ap.add_argument("--calls", type=int, default=10)
@@ -121,13 +143,20 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    params = load_preset(args.preset)["sgm"]
-    il, ir, _ = random_dot_stereo(args.height, args.width, params.max_disp,
-                                  seed=args.seed)
     dev = torch.device(args.device)
-    rec = profile_stereo(torch.from_numpy(il).to(dev),
-                         torch.from_numpy(ir).to(dev), params, args.calls,
-                         args.warmup)
+    preset = load_preset(args.preset or str(PRESETS[args.pipeline]))
+    if args.pipeline == "stereo":
+        params = preset["sgm"]
+        a, b, _ = random_dot_stereo(args.height, args.width, params.max_disp,
+                                    seed=args.seed)
+        run = profile_stereo
+    else:
+        params = preset["flow"]
+        a, b, _, _ = blockwise_flow_pair(args.height, args.width,
+                                         FLOW_MAX_MAG, seed=args.seed)
+        run = profile_flow
+    rec = run(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
+              params, args.calls, args.warmup)
     if args.device == "cuda":
         rec["card"] = torch.cuda.get_device_name(dev)
     for r in rec["rows"]:
@@ -135,7 +164,8 @@ def main(argv=None) -> int:
               f"{r['launches']:6.1f} launches/frame  {r['name'][:110]}")
     print(f"busy {rec['busy_ms']:.4f} ms/frame, wall {rec['wall_ms']:.4f} "
           f"ms/frame, busy share {rec['busy_share']:.4f}, peak "
-          f"{rec['peak_mib']} MiB ({rec['device']}, shape {rec['shape']})")
+          f"{rec['peak_mib']} MiB ({rec['device']}, {rec['pipeline']}, "
+          f"shape {rec['shape']})")
     print(json.dumps(rec))
     return 0
 

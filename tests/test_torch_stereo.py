@@ -6,8 +6,10 @@
   * vs the frozen fixtures (tests/fixtures, params from
     tools/freeze_fixtures.py): cost, S and d_int exact, disp within 1e-3;
   * stereo_sgm_batch == per-frame stereo_sgm; the CLI on PNGs; importing
-    the port never loads jax; lr_mode="reagg" is refused, not substituted;
-    the profiler's breakdown adds up.
+    the port loads no module of jax, fsgm_tpu or golden; every
+    configs/*.json loads into the port's parameter classes equal to the
+    JAX package's; lr_mode="reagg" is refused, not substituted; the
+    profiler's breakdown adds up.
 The kernels themselves are checked on the card by chip_smoke.py and by the
 `cuda`-marked test here, which skips without a card.
 """
@@ -159,15 +161,61 @@ def test_profile_breakdown_adds_up_on_cpu():
 
 
 def test_importing_the_port_never_loads_jax():
+    """Every module of the port, imported in a fresh interpreter, loads no
+    module of jax, of the JAX package or of golden/."""
     mods = [m.name for m in pkgutil.walk_packages(
         fsgm_tpu_torch.__path__, "fsgm_tpu_torch.")
         if not m.name.endswith("__main__")]
-    code = ("import importlib, sys\n"
+    code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "print('jax' in sys.modules)")
+            "print(json.dumps(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
-    assert len(mods) >= 10 and out.stdout.strip() == "False"
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    roots = ("jax", "fsgm_tpu", "golden")
+    foreign = [m for m in loaded
+               if m in roots or m.startswith(tuple(r + "." for r in roots))]
+    assert len(mods) >= 15 and "fsgm_tpu_torch.models.flow" in loaded
+    assert foreign == []
+
+
+@pytest.mark.parametrize("preset", sorted(
+    p.name for p in (REPO / "configs").glob("*.json")))
+def test_presets_load_into_equal_parameters(preset):
+    """Every configs/*.json loads into the port's own classes with the JAX
+    package's fields and values, and round-trips through its JSON."""
+    import dataclasses
+    from fsgm_tpu import params as jparams
+    from fsgm_tpu_torch import params as tparams
+    path = str(REPO / "configs" / preset)
+    want, got = jparams.load_preset(path), tparams.load_preset(path)
+    assert got.keys() == want.keys()
+    for key, w in want.items():
+        g_ = got[key]
+        if not dataclasses.is_dataclass(w):
+            assert g_ == w
+            continue
+        assert type(g_).__module__ == "fsgm_tpu_torch.params"
+        assert type(g_).__name__ == type(w).__name__
+        assert dataclasses.asdict(g_) == dataclasses.asdict(w)
+        assert tparams.params_to_json(g_) == jparams.params_to_json(w)
+        assert tparams.params_from_json(tparams.params_to_json(g_)) == g_
+
+
+def test_param_constants_and_defaults_match_jax():
+    import dataclasses
+    from fsgm_tpu import params as jparams
+    from fsgm_tpu_torch import params as tparams
+    for name in ("DIRS_8", "DIRS_16", "INVALID"):
+        assert getattr(tparams, name) == getattr(jparams, name)
+    for cls in ("SGMParams", "FlowParams", "DistParams"):
+        assert dataclasses.asdict(getattr(tparams, cls)()) == \
+            dataclasses.asdict(getattr(jparams, cls)())
+    for args in ((7, 100), (3, 60, 24), (0, 5)):
+        assert tparams.forgetting_margin(*args) == \
+            jparams.forgetting_margin(*args)
+    with pytest.raises(ValueError, match="fb_backward"):
+        tparams.FlowParams(fb_backward="both")
 
 
 @pytest.fixture
