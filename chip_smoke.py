@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
-Two main paths: stereo (configs/kitti_stereo.json, 375x1242, D=128) and
-fSGM flow (configs/kitti_flow.json, 375x1242, 4 levels, 81 labels).
-Phases, each of which raises on failure (non-zero exit, no ok line):
+Three main paths: stereo (configs/kitti_stereo.json, 375x1242, D=128), fSGM
+flow (configs/kitti_flow.json, 375x1242, 4 levels, 81 labels) and batched
+stereo (stereo_sgm_batch, 16 frames of config 2 in one pass).  Phases, each
+of which raises on failure (non-zero exit, no ok line):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the five kernels from fsgm_tpu_torch/csrc, one nvcc per source,
@@ -20,23 +21,39 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
   4. stereo_sgm end to end against stereo_sgm_reference (plain versions
      only): identical invalid mask, valid disparities within 1e-3, D1-all
      against the ground truth, and each kernel's launch count in that call;
-     stereo_sgm_batch on 4 frames equals per-frame stereo_sgm;
   5. flow_fsgm end to end against flow_fsgm_reference at config 4:
      identical validity planes, valid flow within 1e-3, Fl-all / EPE /
      valid share against the ground truth, and each kernel's launch count
      in that call; flow_fsgm_batch on 2 frames equals per-frame flow_fsgm;
-  6. CUDA-event timings (median after warm-up) of each kernel and its plain
+  6. batched stereo: K1 (left and right reference), K2 (each direction and
+     the summed S) and K3 (with and without the right-view pass) over B
+     frames against their plain versions, exact, at config 1
+     (configs/tsukuba.json, 288x384, D=64) and at config 2, B=16 each (the
+     batched path's own shapes), on frames of different content where one
+     frame's last row is bright and the next one's first row dark;
+     stereo_sgm_batch at config 2
+     (the main path, launches counted: one K1, one K2 per direction, one
+     K3) and at config 1, B=16 each, and at 4K (configs/tiled_4k.json,
+     2160x3840, D=128) with B=2, where the batch's int16 S passes 4 GiB,
+     equal to per-frame stereo_sgm bit for bit; stereo_sgm with lr_mode="reagg" and with fill_invalid at config 2
+     against stereo_sgm_reference; the `batch` CLI (a --fault-inject run,
+     exit 17, then the resume) and a `serve` stereo_batch request on the
+     card, on PNGs written to a temporary directory;
+  7. CUDA-event timings (median after warm-up) of each kernel and its plain
      version on the main paths' inputs (K2: the frame's 8 launches over
-     prebuilt P2' tables; the flow kernels at level 0), K5 beside PyTorch's
-     own axis exchange (library_ms), the device launches of the plain-torch
-     flow cost build and census, and both pipelines end to end.
+     prebuilt P2' tables; the flow kernels at level 0; K1, K2 and K3 also
+     over the 16 frames of the batched path), K5 beside PyTorch's own axis
+     exchange (library_ms), the device launches of the plain-torch flow
+     cost build and census, the pipelines end to end, and the batched
+     path's ms and launches per frame at B=1 and B=16.
 
 Each kernel's bound_ms is the larger of two times for this run's shapes:
 the bytes it must move (each input read once, each output written once;
 label pad slots that no kernel reads are not counted) over 3.35 TB/s, and
 its integer operations over 67e12 op/s (the H100's float32 rate outside the
 tensor cores; the table of peaks has no int32 rate, so this bound is
-generous).  Operations per element: K1 3 (xor, popcount, select) per cost
+generous).  The batched rows count the same per frame, times B.
+Operations per element: K1 3 (xor, popcount, select) per cost
 byte; K2 8 per label and direction for 1D labels (two shuffled neighbours,
 +P1, three mins, +C-m, the warp min), 11 for 2D labels (two more neighbour
 mins); K3 6 per S value (two packed keys, two mins); K4 3 per S value
@@ -49,16 +66,24 @@ The last lines are the per-kernel JSON record, the card line, and
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 KITTI = (375, 1242, 128)
+TSUKUBA = (288, 384, 64)
+UHD = (2160, 3840, 128)   # configs/tiled_4k.json: S of 2 frames > 4 GiB
 SMALL = (37, 53, 32)
+BATCH = 16        # frames per stereo_sgm_batch call on the batched path
+CLI_FRAMES = 4    # KITTI-size pairs through the batch CLI
+REPO = Path(__file__).resolve().parent
 FLOW_HW = (375, 1242)
 FLOW_SMALL = (37, 53)
 FLOW_MAX_MAG = 8
@@ -67,14 +92,17 @@ DISP_TOL = 1e-3  # f32 subpixel: both sides use the same IEEE formula
 FLOW_TOL = 1e-3  # the float tail is the same torch code on both sides
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-# name: (csrc source, TPU kernel it replaces, second one, main path(s))
+# name: (csrc source, TPU kernel it replaces, the others, main paths); the
+# kernels line's `launches` is the first path's count, launches_by_path all
 SOURCES = {
     "census_cost": ("cost", "fsgm_tpu/ops/pallas/cost_tr.py:106",
-                    "fsgm_tpu/ops/pallas/cost_tr.py:264", ("stereo",)),
+                    ["fsgm_tpu/ops/pallas/cost_tr.py:264",
+                     "fsgm_tpu/ops/pallas/cost_tr.py:158"],
+                    ("stereo", "stereo_batch")),
     "sgm_sweep": ("sgm_sweep", "fsgm_tpu/ops/pallas/aggregate_tr.py:289",
-                  None, ("stereo", "flow")),
+                  None, ("stereo", "flow", "stereo_batch")),
     "extract_stereo": ("extract", "fsgm_tpu/ops/pallas/extract_tr.py:227",
-                       None, ("stereo",)),
+                       None, ("stereo", "stereo_batch")),
     "extract_flow": ("extract_flow", "fsgm_tpu/ops/pallas/extract_tr.py:387",
                      None, ("flow",)),
     "label_minor_from_major": (
@@ -141,13 +169,33 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
 
 
 def max_err(a, b) -> int:
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+    """Largest |a - b|, frame by frame over a leading batch axis (the int64
+    copies of a 16-frame KITTI volume would take 23 GB at once)."""
+    require(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    pairs = zip(a, b) if a.dim() == 4 else [(a, b)]
+    return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+               for x, y in pairs)
 
 
 def pair(h, w, d, seed, dev):
     from fsgm_tpu_torch.io import random_dot_stereo
     il, ir, gt = random_dot_stereo(h, w, d, seed=seed)
     return (torch.from_numpy(il).to(dev), torch.from_numpy(ir).to(dev), gt)
+
+
+def frame_stack(h, w, d, b, seed, dev, bleed: bool = False):
+    """(B, H, W) left and right stacks of random-dot pairs (seeds seed ..
+    seed + B - 1); with bleed, frame 0's last row bright and frame 1's
+    first row dark in both views."""
+    from fsgm_tpu_torch.io import random_dot_stereo
+    pairs = [random_dot_stereo(h, w, d, seed=seed + k) for k in range(b)]
+    il = np.stack([p[0] for p in pairs])
+    ir = np.stack([p[1] for p in pairs])
+    if bleed:
+        il[0, -1], ir[0, -1] = 255, 255
+        if b > 1:
+            il[1, 0], ir[1, 0] = 0, 0
+    return torch.from_numpy(il).to(dev), torch.from_numpy(ir).to(dev)
 
 
 def flow_pair(h, w, seed, dev):
@@ -217,6 +265,186 @@ def check_extract_ties(dev) -> None:
     errs = [max_err(a, b) for a, b in zip(got, want)]
     require(all(e == 0 for e in errs), "extract ties != plain")
     print(f"extract ties/int32 volume: max_abs_err {errs}")
+
+
+def check_batch_kernels(shape, b, params, dev, tag: str) -> dict:
+    """K1 (left and right reference), K2 (each direction and the sum) and K3
+    (with and without the right-view pass) over B frames against their
+    plain versions; returns the largest absolute error per kernel."""
+    from fsgm_tpu_torch.ops.census import census_transform
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    from fsgm_tpu_torch.ops.kernels import cost, extract
+
+    h, w, d = shape
+    tl, tr = frame_stack(h, w, d, b, SEED, dev, bleed=True)
+    cl = census_transform(tl, params.census_window)
+    cr = census_transform(tr, params.census_window)
+    k1 = 0
+    for rr in (False, True):
+        got = cost.census_cost(cl, cr, d, params.invalid_cost, rr)
+        k1 = max(k1, max_err(got, cost.census_cost_plain(
+            cl, cr, d, params.invalid_cost, rr)))
+        del got
+    require(k1 == 0, f"{tag} batched census_cost != plain")
+    c = cost.census_cost(cl, cr, d, params.invalid_cost)
+    s_dtype = agg.plan_dtypes(params.s_invalid)
+    k2 = 0
+    for r in params.dirs:
+        p2e = agg.p2_effective(tl, r, params.p1, params.p2,
+                               params.adaptive_p2)
+        got = agg.sgm_sweep(c, p2e, r, params.p1, s_dtype=s_dtype)
+        k2 = max(k2, max_err(got, agg.sgm_sweep_plain(c, p2e, r, params.p1)))
+        del got
+    require(k2 == 0, f"{tag} batched sgm_sweep != plain")
+    s = agg.aggregate_paths(c, tl, params.dirs, params.p1, params.p2,
+                            params.adaptive_p2, params.s_invalid)
+    s_ref = agg.aggregate_paths_plain(c, tl, params.dirs, params.p1,
+                                      params.p2, params.adaptive_p2,
+                                      params.s_invalid)
+    require(s.dtype == s_ref.dtype, f"{tag} batched S dtype")
+    k2 = max(k2, max_err(s, s_ref))
+    require(k2 == 0, f"{tag} batched S != plain")
+    del c, s_ref
+    k3 = 0
+    for with_rwta in (True, False):
+        got = extract.extract_stereo(s, params.s_invalid, params.lr_max_diff,
+                                     params.subpixel, with_rwta)
+        want = extract.extract_stereo_plain(s, params.s_invalid,
+                                            params.lr_max_diff,
+                                            params.subpixel, with_rwta)
+        require((got[4] is None) == (not with_rwta) == (want[4] is None),
+                f"{tag} K3 validity plane with_rwta={with_rwta}")
+        k3 = max([k3] + [max_err(a, x) for a, x in zip(got, want)
+                         if a is not None])
+    require(k3 == 0, f"{tag} batched extract_stereo != plain")
+    errs = {"census_cost": k1, "sgm_sweep": k2, "extract_stereo": k3}
+    print(f"{tag} batched kernels == plain ({b} frames, S {s.dtype}): "
+          f"{errs}")
+    return errs
+
+
+def check_batch_path(shape, b, params, dev, tag: str) -> dict:
+    """stereo_sgm_batch on B frames, launches counted in that call only,
+    equal to per-frame stereo_sgm bit for bit; the launch counts."""
+    from fsgm_tpu_torch import stereo_sgm, stereo_sgm_batch
+    from fsgm_tpu_torch.ops.kernels import _build
+
+    h, w, d = shape
+    tl, tr = frame_stack(h, w, d, b, SEED, dev)
+    _build.LAUNCHES.clear()
+    disp = stereo_sgm_batch(tl, tr, params)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"launches in one stereo_sgm_batch call ({tag}, {b} frames): "
+          f"{launches}")
+    want = {"census_cost": 1, "sgm_sweep": len(params.dirs),
+            "extract_stereo": 1}
+    require(launches == want, f"{tag} batch launches {launches} != {want}")
+    require(tuple(disp.shape) == (b, h, w) and disp.dtype == torch.float32
+            and bool(torch.isfinite(disp).all()),
+            f"{tag} batch shape / finiteness")
+    per = torch.stack([stereo_sgm(tl[k], tr[k], params) for k in range(b)])
+    require(torch.equal(disp, per), f"{tag} stereo_sgm_batch != per-frame")
+    print(f"{tag}: stereo_sgm_batch ({b} frames) == per-frame stereo_sgm, "
+          f"density {float((disp >= 0).float().mean()):.4f}")
+    return launches
+
+
+def check_lr_options(params, dev) -> None:
+    """stereo_sgm with lr_mode="reagg" and with fill_invalid at config 2
+    against stereo_sgm_reference, with the launches of each call."""
+    from fsgm_tpu_torch import stereo_sgm, stereo_sgm_reference
+    from fsgm_tpu_torch.eval import d1_all
+    from fsgm_tpu_torch.ops.kernels import _build
+
+    h, w, d = KITTI
+    tl, tr, gt = pair(h, w, d, SEED, dev)
+    for kw in (dict(lr_mode="reagg"), dict(fill_invalid=True)):
+        q = dataclasses.replace(params, **kw)
+        _build.LAUNCHES.clear()
+        disp = stereo_sgm(tl, tr, q)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        ref = stereo_sgm_reference(tl, tr, q)
+        require(bool(torch.isfinite(disp).all()), f"{kw} finiteness")
+        require(torch.equal(disp < 0, ref < 0), f"{kw} invalid mask != plain")
+        both = (disp >= 0) & (ref >= 0)
+        err = float((disp[both] - ref[both]).abs().max())
+        require(err <= DISP_TOL, f"{kw} disparity error {err}")
+        m = d1_all(disp.cpu().numpy(), gt.astype(np.float64))
+        print(f"stereo_sgm {kw} vs plain: invalid mask equal, max |disp "
+              f"err| {err}; D1-all {m['d1_all']:.4f} density "
+              f"{m['density']:.4f}; launches {launches}")
+
+
+def run_cli(args, stdin: str | None = None, expect: int = 0) -> list[dict]:
+    """python -m fsgm_tpu_torch.cli <args> on the card; its JSON lines."""
+    proc = subprocess.run([sys.executable, "-m", "fsgm_tpu_torch.cli", *args,
+                           "--device", "cuda"], cwd=REPO, input=stdin,
+                          capture_output=True, text=True, timeout=600)
+    require(proc.returncode == expect,
+            f"cli {args[0]} exit {proc.returncode} != {expect}: "
+            f"{proc.stderr[-2000:]}")
+    return [json.loads(x) for x in proc.stdout.splitlines()
+            if x.startswith("{")]
+
+
+def check_cli(params, dev) -> None:
+    """The batch CLI with a fault injection and the resume, and a serve
+    stereo_batch request, on KITTI-size PNG pairs; every written disparity
+    equal to stereo_sgm's within the PNG's 1/256 step."""
+    from fsgm_tpu_torch import stereo_sgm
+    from fsgm_tpu_torch.io import (load_gray, random_dot_stereo,
+                                   read_disparity_png, save_gray)
+
+    h, w, d = KITTI
+    preset = str(REPO / "configs" / "kitti_stereo.json")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        lines = []
+        for k in range(CLI_FRAMES):
+            il, ir, _ = random_dot_stereo(h, w, d, seed=SEED + 40 + k)
+            save_gray(tmp / f"l{k}.png", il)
+            save_gray(tmp / f"r{k}.png", ir)
+            lines.append([str(tmp / f"l{k}.png"), str(tmp / f"r{k}.png"),
+                          str(tmp / f"d{k}.png")])
+        lst = tmp / "pairs.txt"
+        lst.write_text("\n".join("\t".join(x) for x in lines) + "\n")
+        args = ["batch", str(lst), "--manifest", str(tmp / "run.jsonl"),
+                "--preset", preset, "--dispatch-batch", "2"]
+        out = run_cli(args + ["--fault-inject", "2"], expect=17)
+        require(out[-1] == {"cmd": "batch", "fault_injected": True,
+                            "done": 2}, f"fault-inject record {out}")
+        out = run_cli(args)
+        require(out[-1] == {"cmd": "batch", "total": CLI_FRAMES,
+                            "newly_done": CLI_FRAMES - 2, "skipped": 2},
+                f"resume record {out}")
+        reqs = [{"task": "stereo_batch", "id": "sb",
+                 "pairs": [[a, b, o.replace(".png", "_s.png")]
+                           for a, b, o in lines[:2]]},
+                {"task": "stereo", "id": "s", "left": lines[2][0],
+                 "right": lines[2][1], "out": str(tmp / "single.png")}]
+        out = run_cli(["serve", "--preset", preset, "--pipeline", "1"],
+                      stdin="".join(json.dumps(r) + "\n" for r in reqs)
+                      + "\n")
+        require([r.get("id") for r in out[1:-1]] == ["sb", "s"]
+                and all("error" not in r for r in out),
+                f"serve responses {out}")
+        written = [(x[2], x) for x in lines]
+        written += [(x[2].replace(".png", "_s.png"), x) for x in lines[:2]]
+        written.append((str(tmp / "single.png"), lines[2]))
+        worst = 0.0
+        for path, (a, b, _) in written:
+            want = stereo_sgm(torch.tensor(load_gray(a), device=dev),
+                              torch.tensor(load_gray(b), device=dev),
+                              params).cpu().numpy()
+            got = read_disparity_png(path)
+            require(np.array_equal(got < 0, want < 0), f"{path} mask")
+            worst = max(worst, float(np.abs(got - want)[want >= 0].max()))
+        require(worst <= 1 / 256, f"CLI disparity error {worst}")
+    print(f"cli batch (fault-inject after 2, resume of {CLI_FRAMES - 2}) and "
+          f"serve stereo_batch + stereo on {h}x{w} PNGs: {len(written)} "
+          f"outputs == stereo_sgm within {worst} (PNG step 1/256)")
 
 
 def flow_level(hw, params, dev) -> dict:
@@ -316,7 +544,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    import dataclasses
     from fsgm_tpu_torch import (DIRS_16, FlowParams, SGMParams, flow_fsgm,
                                 flow_fsgm_batch, flow_fsgm_reference,
                                 load_preset, stereo_sgm, stereo_sgm_batch,
@@ -387,14 +614,6 @@ def main() -> int:
     print(f"stereo end to end vs plain: invalid mask equal, max |disp err| "
           f"{derr}; D1-all {m['d1_all']:.4f} EPE {m['epe']:.4f} "
           f"density {m['density']:.4f}")
-    frames = [pair(h, w, d, SEED + k, dev) for k in range(4)]
-    imgs_l = torch.stack([f[0] for f in frames])
-    imgs_r = torch.stack([f[1] for f in frames])
-    batch = stereo_sgm_batch(imgs_l, imgs_r, params)
-    per = torch.stack([stereo_sgm(a, b, params)
-                       for a, b in zip(imgs_l, imgs_r)])
-    require(torch.equal(batch, per), "stereo_sgm_batch != per-frame")
-    print("stereo_sgm_batch (4 frames) == per-frame stereo_sgm")
 
     # 5. the flow path end to end, launches counted in this call only
     fh, fw = FLOW_HW
@@ -425,12 +644,27 @@ def main() -> int:
             and torch.equal(fb[1], fo) and torch.equal(vb[1], vo),
             "flow_fsgm_batch != per-frame")
     print("flow_fsgm_batch (2 frames) == per-frame flow_fsgm")
+
+    # 6. batched stereo: kernels over B frames, the batched path (config 2,
+    #    16 frames, launches counted in this call only), reagg and fill, CLI
+    tparams = load_preset("configs/tsukuba.json")["sgm"]
+    errs = merge_errs(errs, check_batch_kernels(TSUKUBA, BATCH, tparams, dev,
+                                                "config-1"))
+    errs = merge_errs(errs, check_batch_kernels(KITTI, BATCH, params, dev,
+                                                "config-2"))
+    launches["stereo_batch"] = check_batch_path(KITTI, BATCH, params, dev,
+                                                "config 2")
+    check_batch_path(TSUKUBA, BATCH, tparams, dev, "config 1")
+    check_batch_path(UHD, 2, load_preset("configs/tiled_4k.json")["sgm"], dev,
+                     "4K")
+    check_lr_options(params, dev)
+    check_cli(params, dev)
     for name, (_, _, _, paths) in SOURCES.items():
         for path in paths:
             require(launches[path].get(name, 0) > 0,
                     f"{name} not launched on the {path} path")
 
-    # 6. timings, each kernel on its main path's inputs
+    # 7. timings, each kernel on its main path's inputs
     cl = census_transform(tl, params.census_window)
     cr = census_transform(tr, params.census_window)
     cost_args = (cl, cr, d, params.invalid_cost)
@@ -528,12 +762,81 @@ def main() -> int:
           f"{fe2e_plain:.4f} ms/frame ({fh}x{fw}, config 4: "
           f"{dataclasses.asdict(fparams)}; {card_line})")
 
+    # the batched path: K1, K2, K3 over its 16 frames, then ms and launches
+    # per frame of stereo_sgm_batch at B=1 and B=16
+    bl, br = frame_stack(h, w, d, BATCH, SEED, dev)
+    bcl = census_transform(bl, params.census_window)
+    bcr = census_transform(br, params.census_window)
+    bcost_args = (bcl, bcr, d, params.invalid_cost)
+    bc = cost.census_cost(*bcost_args)
+    bp2es = [agg.p2_effective(bl, r, params.p1, params.p2,
+                              params.adaptive_p2) for r in params.dirs]
+
+    def bsweeps(plain: bool = False):
+        if plain:
+            return sum(agg.sgm_sweep_plain(bc, p2e, r, params.p1)
+                       for r, p2e in zip(params.dirs, bp2es)).to(s_dtype)
+        s = None
+        for r, p2e in zip(params.dirs, bp2es):
+            s = agg.sgm_sweep(bc, p2e, r, params.p1, s=s, s_dtype=s_dtype)
+        return s
+
+    bext_args = (bsweeps(), params.s_invalid, params.lr_max_diff,
+                 params.subpixel)
+    bhw = BATCH * hw
+    bwork = {
+        "census_cost": (
+            lambda: cost.census_cost(*bcost_args),
+            lambda: cost.census_cost_plain(*bcost_args),
+            (BATCH * (2 * hw * 8 + hw * d), 3 * bhw * d)),
+        "sgm_sweep": (
+            bsweeps, lambda: bsweeps(plain=True),
+            (bhw * d + n_dirs * bhw * 4 + bhw * d * s_bytes,
+             8 * n_dirs * bhw * d)),
+        "extract_stereo": (
+            lambda: extract.extract_stereo(*bext_args),
+            lambda: extract.extract_stereo_plain(*bext_args),
+            (bhw * d * s_bytes + 5 * bhw * 4, 6 * bhw * d)),
+    }
+    btimes = {}
+    for name, (kern, plain, (nbytes, nops)) in bwork.items():
+        plain_ms = median_ms(plain, reps=3, warmup=1)
+        torch.cuda.empty_cache()
+        ms = median_ms(kern)
+        b_ms, b_by = bound(nbytes, nops)
+        btimes[name] = dict(frames=BATCH, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        print(f"time {name} batched: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} "
+              f"B, {nops} ops) ({BATCH} frames of {(h, w, d)}; "
+              f"{card_line})")
+    del bc, bp2es, bext_args
+    torch.cuda.empty_cache()
+    per_frame = {}
+    for b in (1, BATCH):
+        fl, fr = bl[:b].contiguous(), br[:b].contiguous()
+        _build.LAUNCHES.clear()
+        stereo_sgm_batch(fl, fr, params)
+        torch.cuda.synchronize()
+        k_launches = sum(_build.LAUNCHES.values()) / b
+        dev_launches = device_launches(
+            lambda: stereo_sgm_batch(fl, fr, params)) / b
+        ms = median_ms(lambda: stereo_sgm_batch(fl, fr, params), reps=5) / b
+        per_frame[b] = dict(ms=ms, device_launches=dev_launches,
+                            kernel_launches=k_launches)
+        print(f"time stereo_sgm_batch B={b}: {ms:.4f} ms/frame, "
+              f"{h * w * d / (ms * 1e3):.1f} Mpixel*disp/s, "
+              f"{dev_launches:.2f} device launches/frame, {k_launches:.4f} "
+              f"kernel-wrapper launches/frame ({h}x{w}x{d}; {card_line})")
+    print(f"batched path per frame, B=1 vs B={BATCH}: "
+          f"{json.dumps(per_frame)} ({card_line})")
+
     rows = []
     for name, (lib, replaces, also, paths) in SOURCES.items():
         row = {"name": name, "route": "cuda",
                "source": f"fsgm_tpu_torch/csrc/{lib}.cu",
                "replaces": replaces,
-               "launches": sum(launches[p].get(name, 0) for p in paths),
+               "launches": launches[paths[0]].get(name, 0),
                "max_abs_err": errs[name], **times[name]}
         if also:
             row["also_replaces"] = also
@@ -542,6 +845,8 @@ def main() -> int:
                                        for p in paths}
         if name == "sgm_sweep":  # the row's times: 1D labels, stereo frame
             row["label_2d"] = times["sgm_sweep_2d"]
+        if name in btimes:  # the same kernel over the batched path's frames
+            row["batch"] = btimes[name]
         rows.append(row)
 
     foreign = foreign_modules()

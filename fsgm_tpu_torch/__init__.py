@@ -17,9 +17,10 @@ from fsgm_tpu_torch.params import (DIRS_8, DIRS_16, INVALID, FlowParams,
 from fsgm_tpu_torch.models.flow import (flow_fsgm, flow_fsgm_batch,
                                         flow_fsgm_reference, flow_sequence)
 from fsgm_tpu_torch.models.stereo import (stereo_sgm, stereo_sgm_batch,
+                                          stereo_sgm_batch_reference,
                                           stereo_sgm_reference)
 
 __all__ = ["SGMParams", "FlowParams", "DIRS_8", "DIRS_16", "INVALID",
            "load_preset", "stereo_sgm", "stereo_sgm_batch",
-           "stereo_sgm_reference", "flow_fsgm", "flow_fsgm_batch",
+           "stereo_sgm_batch_reference", "stereo_sgm_reference", "flow_fsgm", "flow_fsgm_batch",
            "flow_fsgm_reference", "flow_sequence"]

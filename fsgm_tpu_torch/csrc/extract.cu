@@ -4,7 +4,9 @@
 // Replaces the TPU kernel fsgm_tpu/ops/pallas/extract_tr.py::
 // extract_stereo_major (kernel body _make_extract_kernel, helpers _rwta_row,
 // _round_disp, _lr_valid_row) as the main path calls it (with_sub,
-// with_rwta, with_lr).  Per pixel of the label-minor (H, W, D) S:
+// with_rwta, with_lr; without with_rwta for lr_mode="reagg", where the
+// right view comes from its own S).  Per pixel of the label-minor
+// (B, H, W, D) S:
 //
 //   d*          = argmin_d S, smallest d on ties, as min of (S << 8) | d
 //   s_m,s_0,s_p = S[d*-1], S[d*], S[d*+1]; BIG = 1 << 24 out of range
@@ -13,17 +15,21 @@
 //   valid       = x >= dr and |dr - rho(y, x - dr)| <= max_diff, with
 //                 dr = rint(subpixel d*) in IEEE f32, round half to even
 //
-// Bound: device-memory bytes (S is read once: 2*D bytes per pixel, 119 MB at
-// KITTI in int16).  Design: one block per image row.  A warp reads one
+// Bound: device-memory bytes (S is read once: 2*D bytes per pixel, 119 MB a
+// KITTI frame in int16).  Design: one block per image row of one frame
+// (blockIdx.x = b * H + y, B*H blocks in one launch; the row's 64-bit offset
+// is blockIdx.x * W, and every read of the row stays inside it, so a frame
+// never reads its neighbour).  A warp reads one
 // pixel's D values coalesced (K = D/32 per lane) and reduces the packed WTA
 // with __reduce_min_sync.  The right-view WTA needs the diagonal S(y, x+d, d),
 // which crosses D pixels; instead of a second, uncoalesced diagonal read,
 // every value S(y, x, d) read for the left view is scattered into rho[x - d]
 // with a shared-memory atomicMin on the same packed key, so the whole row's
 // rho builds in shared memory during the one read.  The validity pass then
-// reads rho and dr from shared memory after one __syncthreads.  The
-// division is IEEE (no fast-math), so dr matches the f32 host formula bit
-// for bit.
+// reads rho and dr from shared memory after one __syncthreads.  Without
+// with_rwta the block skips the scatter, the validity pass and the shared
+// memory, and writes no validity plane.  The division is IEEE (no
+// fast-math), so dr matches the f32 host formula bit for bit.
 
 #include <climits>
 #include <cstdint>
@@ -52,21 +58,22 @@ __global__ void __launch_bounds__(kThreads)
 extract_kernel(const ST* __restrict__ s, int* __restrict__ d_out,
                int* __restrict__ sm_out, int* __restrict__ s0_out,
                int* __restrict__ sp_out, int* __restrict__ valid_out, int w,
-               int s_invalid, int max_diff, int with_sub) {
+               int s_invalid, int max_diff, int with_sub, int with_rwta) {
   constexpr int ND = 32 * K;
   extern __shared__ int smem[];
   int* rho = smem;       // packed (S << 8) | d right-view minimum, per x
   int* dr_sh = smem + w; // rint(subpixel d*), per x
-  const int y = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  for (int x = threadIdx.x; x < w; x += blockDim.x) {
-    const int first_out = w - x;  // smallest d with x + d >= W
-    rho[x] = first_out < ND ? ((s_invalid << 8) | first_out) : INT_MAX;
+  if (with_rwta) {
+    for (int x = threadIdx.x; x < w; x += blockDim.x) {
+      const int first_out = w - x;  // smallest d with x + d >= W
+      rho[x] = first_out < ND ? ((s_invalid << 8) | first_out) : INT_MAX;
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  const long long row = (long long)y * w;
+  const long long row = (long long)blockIdx.x * w;  // (b * H + y) * W
   for (int x = warp; x < w; x += nwarps) {
     const ST* sp = s + (row + x) * ND + lane * K;
     int v[K];
@@ -78,7 +85,7 @@ extract_kernel(const ST* __restrict__ s, int* __restrict__ d_out,
       const int d = lane * K + k;
       const int key = (v[k] << 8) | d;
       pk = min(pk, key);
-      if (x >= d) atomicMin(&rho[x - d], key);
+      if (with_rwta && x >= d) atomicMin(&rho[x - d], key);
     }
     pk = __reduce_min_sync(kFull, pk);
     const int dstar = pk & 255;
@@ -98,9 +105,10 @@ extract_kernel(const ST* __restrict__ s, int* __restrict__ d_out,
       sm_out[o] = smv;
       s0_out[o] = s0;
       sp_out[o] = spv;
-      dr_sh[x] = round_disp(dstar, smv, s0, spv, ND, with_sub);
+      if (with_rwta) dr_sh[x] = round_disp(dstar, smv, s0, spv, ND, with_sub);
     }
   }
+  if (!with_rwta) return;  // uniform over the block
   __syncthreads();
   for (int x = threadIdx.x; x < w; x += blockDim.x) {
     const int dr = dr_sh[x];
@@ -115,30 +123,31 @@ extract_kernel(const ST* __restrict__ s, int* __restrict__ d_out,
 
 template <int K, typename ST>
 int launch(const void* s, void* d, void* sm, void* s0, void* sp, void* valid,
-           int h, int w, int s_invalid, int max_diff, int with_sub,
-           cudaStream_t st) {
-  const size_t shmem = 2 * sizeof(int) * (size_t)w;
+           long long rows, int w, int s_invalid, int max_diff, int with_sub,
+           int with_rwta, cudaStream_t st) {
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t shmem = with_rwta ? 2 * sizeof(int) * (size_t)w : 0;
   auto kernel = extract_kernel<K, ST>;
   if (shmem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<h, kThreads, shmem, st>>>((const ST*)s, (int*)d, (int*)sm, (int*)s0,
-                                     (int*)sp, (int*)valid, w, s_invalid,
-                                     max_diff, with_sub);
+  kernel<<<(unsigned)rows, kThreads, shmem, st>>>(
+      (const ST*)s, (int*)d, (int*)sm, (int*)s0, (int*)sp, (int*)valid, w,
+      s_invalid, max_diff, with_sub, with_rwta);
   return (int)cudaGetLastError();
 }
 
 template <typename ST>
 int dispatch(int k, const void* s, void* d, void* sm, void* s0, void* sp,
-             void* valid, int h, int w, int s_invalid, int max_diff,
-             int with_sub, cudaStream_t st) {
+             void* valid, long long rows, int w, int s_invalid, int max_diff,
+             int with_sub, int with_rwta, cudaStream_t st) {
   switch (k) {
-#define FSGM_CASE(KK)                                                          \
-  case KK:                                                                     \
-    return launch<KK, ST>(s, d, sm, s0, sp, valid, h, w, s_invalid, max_diff, \
-                          with_sub, st);
+#define FSGM_CASE(KK)                                                     \
+  case KK:                                                                \
+    return launch<KK, ST>(s, d, sm, s0, sp, valid, rows, w, s_invalid,   \
+                          max_diff, with_sub, with_rwta, st);
     FSGM_CASE(1) FSGM_CASE(2) FSGM_CASE(3) FSGM_CASE(4)
     FSGM_CASE(5) FSGM_CASE(6) FSGM_CASE(7) FSGM_CASE(8)
 #undef FSGM_CASE
@@ -148,16 +157,20 @@ int dispatch(int k, const void* s, void* d, void* sm, void* s0, void* sp,
 
 }  // namespace
 
-// s (H, W, D) int16 (s_int32 = 0) or int32, D a multiple of 32 up to 256;
-// five (H, W) int32 outputs.
+// s (B, H, W, D) int16 (s_int32 = 0) or int32, D a multiple of 32 up to
+// 256; five (B, H, W) int32 outputs (valid written only with with_rwta).
 extern "C" int fsgm_extract_stereo(const void* s, int s_int32, void* d,
                                    void* sm, void* s0, void* sp, void* valid,
-                                   int h, int w, int nd, int s_invalid,
-                                   int max_diff, int with_sub, void* stream) {
+                                   int b, int h, int w, int nd, int s_invalid,
+                                   int max_diff, int with_sub, int with_rwta,
+                                   void* stream) {
   if (nd % 32 != 0) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)b * h;
   cudaStream_t st = (cudaStream_t)stream;
-  return s_int32 ? dispatch<int32_t>(nd / 32, s, d, sm, s0, sp, valid, h, w,
-                                     s_invalid, max_diff, with_sub, st)
-                 : dispatch<int16_t>(nd / 32, s, d, sm, s0, sp, valid, h, w,
-                                     s_invalid, max_diff, with_sub, st);
+  return s_int32 ? dispatch<int32_t>(nd / 32, s, d, sm, s0, sp, valid, rows, w,
+                                     s_invalid, max_diff, with_sub, with_rwta,
+                                     st)
+                 : dispatch<int16_t>(nd / 32, s, d, sm, s0, sp, valid, rows, w,
+                                     s_invalid, max_diff, with_sub, with_rwta,
+                                     st);
 }

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel fsgm_tpu/ops/pallas/aggregate_tr.py::tr_family_sweep
 // (kernel body _make_tr_kernel, label-neighbour rules make_tr_nmin_1d and
-// make_tr_nmin_2d).  For one direction r = (dy, dx):
+// make_tr_nmin_2d), also as aggregate_paths_tr_batch calls it on the
+// lane-folded (W, L, B*Hp) volume of B frames.  For one direction r = (dy, dx):
 //
 //   L_r(p, l) = C(p, l) + min(L(p-r, l), N(p-r, l) + P1, m + P2'(p)) - m,
 //   m = min_k L(p-r, k),   L_r(p, l) = C(p, l) where p - r lies outside,
@@ -35,7 +36,13 @@
 // first |dx| columns), which covers the 8 paths and the knight directions
 // (|dy| = 2 steps two rows back) alike.  The launches of one frame's
 // directions run in order on one stream, so the read-modify-write of S
-// needs no atomics.
+// needs no atomics.  Batch: one launch per direction covers B frames; the
+// global line index gives the frame and the frame's own line, every pixel
+// offset is the frame's 64-bit base plus y * W + x, and a walk stops at its
+// own frame's edge, so a line never continues into the next frame (the TPU
+// got this from neutral zero pad lanes between folded frames).  B frames
+// give B times the lines: 16 KITTI frames give the horizontal directions
+// 6,000 lines instead of 375.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -67,13 +74,19 @@ template <int K, typename ST, bool FRESH, bool LABEL2D>
 __global__ void __launch_bounds__(kThreads)
 sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
                  ST* __restrict__ s, int h, int w, int nl, int ext, int dy,
-                 int dx, int p1, int n_row_starts, int rows_rem, int n_lines) {
+                 int dx, int p1, int n_row_starts, int rows_rem,
+                 int per_frame, long long n_lines) {
   constexpr int ND = 32 * K;
   // LABEL2D: each warp's previous L row, read by label index
   __shared__ int prev_row[LABEL2D ? kThreads / 32 : 1][LABEL2D ? ND : 1];
   const int lane = threadIdx.x & 31;
-  const int line = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  if (line >= n_lines) return;  // uniform over the warp
+  const long long gline = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (gline >= n_lines) return;  // uniform over the warp
+  // the frame and this frame's line: the walk below stays inside [0, H) x
+  // [0, W) of its own frame, whose first pixel is `base`
+  const long long frame = gline / per_frame;
+  const int line = (int)(gline - frame * per_frame);
+  const long long base = frame * h * w;
   int* row = prev_row[LABEL2D ? (threadIdx.x >> 5) : 0];
   int y, x;
   if (line < n_row_starts) {
@@ -101,7 +114,7 @@ sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
       has_d[k] = d + ext < nl;
     }
   }
-  long long pix = (long long)y * w + x;
+  long long pix = base + (long long)y * w + x;
   int c[K], sv[K], prev[K];
   int p2v;
   load_step<K, ST, FRESH>(cost, p2e, s, pix, d0, c, sv, p2v);
@@ -109,7 +122,7 @@ sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
   while (true) {
     const int ny = y + dy, nx = x + dx;
     const bool more = ny >= 0 && ny < h && nx >= 0 && nx < w;
-    const long long npix = (long long)ny * w + nx;
+    const long long npix = base + (long long)ny * w + nx;
     int nc[K], nsv[K];
     int np2 = 0;
     if (more) load_step<K, ST, FRESH>(cost, p2e, s, npix, d0, nc, nsv, np2);
@@ -180,28 +193,30 @@ sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
 }
 
 template <int K, typename ST, bool FRESH, bool LABEL2D>
-int launch(const void* cost, const void* p2e, void* s, int h, int w, int nl,
-           int ext, int dy, int dx, int p1, cudaStream_t stream) {
+int launch(const void* cost, const void* p2e, void* s, int b, int h, int w,
+           int nl, int ext, int dy, int dx, int p1, cudaStream_t stream) {
   const int ady = dy < 0 ? -dy : dy, adx = dx < 0 ? -dx : dx;
   const int row_band = ady < h ? ady : h;
   const int n_row_starts = row_band * w;
   const int rows_rem = h - row_band;
-  const int n_lines = n_row_starts + rows_rem * (adx < w ? adx : w);
+  const int per_frame = n_row_starts + rows_rem * (adx < w ? adx : w);
+  const long long n_lines = (long long)b * per_frame;
   const int per_block = kThreads / 32;
-  const int blocks = (n_lines + per_block - 1) / per_block;
-  sgm_sweep_kernel<K, ST, FRESH, LABEL2D><<<blocks, kThreads, 0, stream>>>(
+  const long long blocks = (n_lines + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  sgm_sweep_kernel<K, ST, FRESH, LABEL2D><<<(unsigned)blocks, kThreads, 0, stream>>>(
       (const uint8_t*)cost, (const int*)p2e, (ST*)s, h, w, nl, ext, dy, dx, p1,
-      n_row_starts, rows_rem, n_lines);
+      n_row_starts, rows_rem, per_frame, n_lines);
   return (int)cudaGetLastError();
 }
 
 template <typename ST, bool FRESH, bool LABEL2D>
-int dispatch(int k, const void* cost, const void* p2e, void* s, int h, int w,
-             int nl, int ext, int dy, int dx, int p1, cudaStream_t st) {
+int dispatch(int k, const void* cost, const void* p2e, void* s, int b, int h,
+             int w, int nl, int ext, int dy, int dx, int p1, cudaStream_t st) {
   switch (k) {
-#define FSGM_CASE(KK)                                                       \
-  case KK:                                                                  \
-    return launch<KK, ST, FRESH, LABEL2D>(cost, p2e, s, h, w, nl, ext, dy, \
+#define FSGM_CASE(KK)                                                          \
+  case KK:                                                                     \
+    return launch<KK, ST, FRESH, LABEL2D>(cost, p2e, s, b, h, w, nl, ext, dy, \
                                           dx, p1, st);
     FSGM_CASE(1) FSGM_CASE(2) FSGM_CASE(3) FSGM_CASE(4)
     FSGM_CASE(5) FSGM_CASE(6) FSGM_CASE(7) FSGM_CASE(8)
@@ -212,33 +227,34 @@ int dispatch(int k, const void* cost, const void* p2e, void* s, int h, int w,
 
 template <typename ST>
 int dispatch_mode(int fresh, int label2d, int k, const void* cost,
-                  const void* p2e, void* s, int h, int w, int nl, int ext,
-                  int dy, int dx, int p1, cudaStream_t st) {
+                  const void* p2e, void* s, int b, int h, int w, int nl,
+                  int ext, int dy, int dx, int p1, cudaStream_t st) {
   if (label2d) {
-    return fresh ? dispatch<ST, true, true>(k, cost, p2e, s, h, w, nl, ext, dy, dx, p1, st)
-                 : dispatch<ST, false, true>(k, cost, p2e, s, h, w, nl, ext, dy, dx, p1, st);
+    return fresh ? dispatch<ST, true, true>(k, cost, p2e, s, b, h, w, nl, ext, dy, dx, p1, st)
+                 : dispatch<ST, false, true>(k, cost, p2e, s, b, h, w, nl, ext, dy, dx, p1, st);
   }
-  return fresh ? dispatch<ST, true, false>(k, cost, p2e, s, h, w, nl, ext, dy, dx, p1, st)
-               : dispatch<ST, false, false>(k, cost, p2e, s, h, w, nl, ext, dy, dx, p1, st);
+  return fresh ? dispatch<ST, true, false>(k, cost, p2e, s, b, h, w, nl, ext, dy, dx, p1, st)
+               : dispatch<ST, false, false>(k, cost, p2e, s, b, h, w, nl, ext, dy, dx, p1, st);
 }
 
 }  // namespace
 
-// cost (H, W, D) u8, p2e (H, W) int32 P2' of this direction, s (H, W, D)
-// int16 (s_int32 = 0) or int32; D a multiple of 32 up to 256, of which the
-// first nl slots are labels.  label_ext = 0: 1D labels; e >= 1: the e x e
-// label grid (nl = e * e).
+// cost (B, H, W, D) u8, p2e (B, H, W) int32 P2' of this direction, s
+// (B, H, W, D) int16 (s_int32 = 0) or int32; D a multiple of 32 up to 256,
+// of which the first nl slots are labels.  label_ext = 0: 1D labels;
+// e >= 1: the e x e label grid (nl = e * e).  One launch covers the B
+// frames: B times each frame's lines.
 extern "C" int fsgm_sgm_sweep(const void* cost, const void* p2e, void* s,
-                              int s_int32, int fresh, int h, int w, int nd,
-                              int nl, int label_ext, int dy, int dx, int p1,
-                              void* stream) {
+                              int s_int32, int fresh, int b, int h, int w,
+                              int nd, int nl, int label_ext, int dy, int dx,
+                              int p1, void* stream) {
   if (nd % 32 != 0 || nl < 1 || nl > nd || label_ext < 0)
     return (int)cudaErrorInvalidValue;
   const int k = nd / 32;
   const int label2d = label_ext > 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return s_int32 ? dispatch_mode<int32_t>(fresh, label2d, k, cost, p2e, s, h, w,
-                                          nl, label_ext, dy, dx, p1, st)
-                 : dispatch_mode<int16_t>(fresh, label2d, k, cost, p2e, s, h, w,
-                                          nl, label_ext, dy, dx, p1, st);
+  return s_int32 ? dispatch_mode<int32_t>(fresh, label2d, k, cost, p2e, s, b, h,
+                                          w, nl, label_ext, dy, dx, p1, st)
+                 : dispatch_mode<int16_t>(fresh, label2d, k, cost, p2e, s, b, h,
+                                          w, nl, label_ext, dy, dx, p1, st);
 }

@@ -1,7 +1,8 @@
-"""Grayscale image reading and PFM writing (numpy).
+"""Grayscale image reading and writing, and PFM writing (numpy).
 
 The port's own copy of the parts of fsgm_tpu/io/images.py it uses: PIL
-reads PNG et al.; PFM (Middlebury float maps) is written directly.
+reads and writes PNG et al.; PFM (Middlebury float maps) is written
+directly.
 """
 
 from __future__ import annotations
@@ -21,6 +22,12 @@ def load_gray(path) -> np.ndarray:
     elif arr.dtype != np.uint8:
         arr = np.clip(arr, 0, 255).astype(np.uint8)
     return arr
+
+
+def save_gray(path, img: np.ndarray) -> None:
+    """(H, W) uint8 image to any PIL-writable file (PNG by suffix)."""
+    from PIL import Image
+    Image.fromarray(np.asarray(img, dtype=np.uint8), mode="L").save(path)
 
 
 def write_pfm(path, data: np.ndarray) -> None:

@@ -1,7 +1,8 @@
-"""KITTI devkit disparity / flow PNG writers and the Middlebury .flo writer.
+"""KITTI devkit disparity / flow PNG readers and writers and the
+Middlebury .flo writer.
 
-The port's own copy of the writers of fsgm_tpu/io/kitti.py, byte for byte
-the same files:
+The port's own copy of the codecs of fsgm_tpu/io/kitti.py: the writers
+write byte for byte the same files, the readers return the same arrays:
   * disparity PNG: uint16, value = disp * 256; 0 = invalid;
   * flow PNG: 3-channel uint16; u = (ch0 - 2^15) / 64, v = (ch1 - 2^15) / 64,
     ch2 = validity (1 = valid);
@@ -16,6 +17,27 @@ import zlib
 import numpy as np
 
 FLO_MAGIC = 202021.25
+
+
+def read_disparity_png(path) -> np.ndarray:
+    """(H, W) float32 disparity; invalid pixels = -1."""
+    raw = read_png16(path).astype(np.float32)
+    disp = raw / 256.0
+    disp[raw == 0] = -1.0
+    return disp
+
+
+def read_flow_png(path):
+    """((H, W, 2) float32 flow, (H, W) bool valid); flow 0 where invalid."""
+    raw = read_png16(path).astype(np.float64)
+    if raw.ndim != 3 or raw.shape[2] < 3:
+        raise ValueError("KITTI flow PNG must have 3 channels")
+    valid = raw[..., 2] > 0
+    u = (raw[..., 0] - 2 ** 15) / 64.0
+    v = (raw[..., 1] - 2 ** 15) / 64.0
+    flow = np.stack([u, v], axis=-1).astype(np.float32)
+    flow[~valid] = 0.0
+    return flow, valid
 
 
 def write_disparity_png(path, disp: np.ndarray) -> None:
@@ -37,6 +59,75 @@ def write_flow_png(path, flow: np.ndarray, valid: np.ndarray | None = None
     raw[..., 1] = np.clip(flow[..., 1] * 64.0 + 2 ** 15, 0, 65535)
     raw[..., 2] = valid.astype(np.uint16)
     write_png16(path, raw)
+
+
+def read_png16(path) -> np.ndarray:
+    """PNG decoder for 8/16-bit grayscale / RGB, every filter type, no
+    interlace (PIL truncates 48-bit RGB, the KITTI flow encoding, to 8 bits
+    a channel).  (H, W) or (H, W, C) at the file's bit depth."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"not a PNG: {path}")
+    pos, idat, ihdr = 8, [], None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+        pos += 12 + length
+    if ihdr is None:
+        raise ValueError(f"PNG without IHDR: {path}")
+    w, h, depth, ctype, _, _, interlace = ihdr
+    if interlace:
+        raise ValueError("interlaced PNG not supported")
+    channels = {0: 1, 2: 3, 4: 2, 6: 4}[ctype]
+    bpp = channels * (depth // 8)          # bytes per pixel
+    stride = w * bpp
+    raw = zlib.decompress(b"".join(idat))
+    out = np.empty((h, stride), dtype=np.uint8)
+    prev = np.zeros(stride, dtype=np.uint8)
+    for y in range(h):
+        ftype = raw[y * (stride + 1)]
+        line = np.frombuffer(raw, np.uint8, stride,
+                             y * (stride + 1) + 1).copy()
+        if ftype == 0:
+            cur = line
+        elif ftype == 2:                   # Up
+            cur = line + prev
+        elif ftype in (1, 3, 4):           # Sub / Average / Paeth: sequential
+            cur = line.astype(np.int32)
+            pv = prev.astype(np.int32)
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = pv[i]
+                c = pv[i - bpp] if i >= bpp else 0
+                if ftype == 1:
+                    cur[i] = (cur[i] + a) & 0xFF
+                elif ftype == 3:
+                    cur[i] = (cur[i] + ((a + b) >> 1)) & 0xFF
+                else:
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if (pa <= pb and pa <= pc) else \
+                        (b if pb <= pc else c)
+                    cur[i] = (cur[i] + pred) & 0xFF
+            cur = cur.astype(np.uint8)
+        else:
+            raise ValueError(f"bad PNG filter {ftype}")
+        out[y] = cur
+        prev = out[y]
+    if depth == 16:
+        arr = out.reshape(h, w, channels, 2).astype(np.uint16)
+        arr = (arr[..., 0] << 8) | arr[..., 1]
+    else:
+        arr = out.reshape(h, w, channels).astype(np.uint16)
+    return arr[..., 0] if channels == 1 else arr
 
 
 def write_png16(path, arr: np.ndarray) -> None:

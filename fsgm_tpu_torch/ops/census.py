@@ -25,23 +25,27 @@ _M4 = 0x0F0F0F0F0F0F0F0F
 
 
 def census_transform(img: torch.Tensor, window=(5, 5)) -> torch.Tensor:
-    """(H, W) integer image -> (H, W) int64 census descriptors."""
+    """(..., H, W) integer images -> (..., H, W) int64 census descriptors,
+    each frame edge-padded on its own."""
     ch, cw = window
     if ch * cw - 1 > 62 or ch % 2 == 0 or cw % 2 == 0:
         raise ValueError(f"census window {window} must be odd and <= 62 bits")
+    if img.dim() < 2:
+        raise ValueError(f"census_transform takes (..., H, W) images, got "
+                         f"{tuple(img.shape)}")
     ry, rx = ch // 2, cw // 2
-    h, w = img.shape
+    h, w = img.shape[-2:]
     centre = img.to(torch.int32)
     rows = torch.arange(-ry, h + ry, device=img.device).clamp_(0, h - 1)
     cols = torch.arange(-rx, w + rx, device=img.device).clamp_(0, w - 1)
-    padded = centre.index_select(0, rows).index_select(1, cols)
-    out = torch.zeros((h, w), dtype=torch.int64, device=img.device)
+    padded = centre.index_select(-2, rows).index_select(-1, cols)
+    out = torch.zeros(img.shape, dtype=torch.int64, device=img.device)
     bit = 0
     for oy in range(ch):
         for ox in range(cw):
             if oy == ry and ox == rx:
                 continue
-            neighbour = padded[oy:oy + h, ox:ox + w]
+            neighbour = padded[..., oy:oy + h, ox:ox + w]
             out |= (neighbour < centre).to(torch.int64) << bit
             bit += 1
     return out

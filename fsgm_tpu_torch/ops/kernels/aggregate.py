@@ -1,7 +1,8 @@
 """K2 sgm_sweep: SGM path aggregation, one direction per launch.
 
 Replaces fsgm_tpu/ops/pallas/aggregate_tr.py::tr_family_sweep (and its
-entry aggregate_paths_tr) on the label-minor (H, W, D) volume:
+entries aggregate_paths_tr and, for B frames, aggregate_paths_tr_batch) on
+the label-minor (H, W, D) volume of one frame or (B, H, W, D) of B frames:
 
     L_r(p, l) = C(p, l) + min(L(p-r, l), N(p-r, l) + P1,
                               m + P2'(p)) - m,     m = min_k L(p-r, k)
@@ -16,7 +17,8 @@ pad slots out of every neighbour min and every m, and its S is 0 there.
 The TPU's direction families, transposed horizontal volume, lane folds,
 pads and knight parity slots were Mosaic layout devices and have no
 counterpart: the CUDA kernel (csrc/sgm_sweep.cu) walks each path line of
-one direction with one warp.
+one direction with one warp, for all B frames in one launch.  Every
+function here takes (H, W, ...) as B = 1.
 
 Also here, from fsgm_tpu/ops/pallas/aggregate_pallas.py: ``p2_effective``
 (the P2' table, adaptive or not) and ``plan_dtypes`` (int16 S where the
@@ -42,50 +44,51 @@ def plan_dtypes(s_max: int | None) -> torch.dtype:
 
 def p2_effective(img: torch.Tensor, direction: Tuple[int, int], p1: int,
                  p2: int, adaptive: bool) -> torch.Tensor:
-    """(H, W) int32 P2' for direction r: max(P1+1, P2 // max(1, |I(p) -
+    """(..., H, W) int32 P2' for direction r: max(P1+1, P2 // max(1, |I(p) -
     I(p - r)|)) when adaptive, else P2.  Where p - r is outside the image
-    the value is never read (L = C there), so the edge is clamped."""
-    h, w = img.shape
+    the value is never read (L = C there), so the edge is clamped, at each
+    frame's own edge."""
+    h, w = img.shape[-2:]
     if not adaptive:
-        return torch.full((h, w), p2, dtype=torch.int32, device=img.device)
+        return torch.full(img.shape, p2, dtype=torch.int32,
+                          device=img.device)
     dy, dx = direction
     cur = img.to(torch.int32)
     ys = (torch.arange(h, device=img.device) - dy).clamp_(0, h - 1)
     xs = (torch.arange(w, device=img.device) - dx).clamp_(0, w - 1)
-    pred = cur.index_select(0, ys).index_select(1, xs)
+    pred = cur.index_select(-2, ys).index_select(-1, xs)
     diff = (cur - pred).abs().clamp_(min=1)
     return (p2 // diff).clamp_(min=p1 + 1).to(torch.int32)
 
 
 def _neighbor_min(prev: torch.Tensor, label_ext: int | None
                   ) -> torch.Tensor:
-    """N over (N, nl) int32: min of the label neighbours, INF where none."""
-    n, nl = prev.shape
+    """N over (..., nl) int32: min of the label neighbours, INF where none."""
     if label_ext is None:
-        inf = torch.full_like(prev[:, :1], INF)
-        return torch.minimum(torch.cat([inf, prev[:, :-1]], dim=1),
-                             torch.cat([prev[:, 1:], inf], dim=1))
+        inf = torch.full_like(prev[..., :1], INF)
+        return torch.minimum(torch.cat([inf, prev[..., :-1]], dim=-1),
+                             torch.cat([prev[..., 1:], inf], dim=-1))
     e = label_ext
-    g = prev.reshape(n, e, e)                 # [., dv, du]
-    inf_row = torch.full_like(g[:, :1, :], INF)
-    inf_col = torch.full_like(g[:, :, :1], INF)
-    up = torch.cat([inf_row, g[:, :-1, :]], dim=1)
-    down = torch.cat([g[:, 1:, :], inf_row], dim=1)
-    left = torch.cat([inf_col, g[:, :, :-1]], dim=2)
-    right = torch.cat([g[:, :, 1:], inf_col], dim=2)
+    g = prev.reshape(prev.shape[:-1] + (e, e))      # [..., dv, du]
+    inf_row = torch.full_like(g[..., :1, :], INF)
+    inf_col = torch.full_like(g[..., :, :1], INF)
+    up = torch.cat([inf_row, g[..., :-1, :]], dim=-2)
+    down = torch.cat([g[..., 1:, :], inf_row], dim=-2)
+    left = torch.cat([inf_col, g[..., :, :-1]], dim=-1)
+    right = torch.cat([g[..., :, 1:], inf_col], dim=-1)
     m = torch.minimum(torch.minimum(up, down), torch.minimum(left, right))
-    return m.reshape(n, nl)
+    return m.reshape(prev.shape)
 
 
 def _recurrence(prev: torch.Tensor, cost: torch.Tensor, valid: torch.Tensor,
                 p1: int, p2e: torch.Tensor, label_ext: int | None
                 ) -> torch.Tensor:
-    """One DP step over (N, nl) int32; golden/sgm.py::_recurrence."""
-    m = prev.amin(dim=1, keepdim=True)
+    """One DP step over (..., nl) int32; golden/sgm.py::_recurrence."""
+    m = prev.amin(dim=-1, keepdim=True)
     best = torch.minimum(
         torch.minimum(prev, _neighbor_min(prev, label_ext) + p1),
-        m + p2e[:, None])
-    return torch.where(valid[:, None], cost + best - m, cost)
+        m + p2e[..., None])
+    return torch.where(valid[..., None], cost + best - m, cost)
 
 
 def _labels(nd: int, label_ext: int | None, nl: int | None) -> int:
@@ -104,38 +107,40 @@ def sgm_sweep_plain(cost: torch.Tensor, p2e: torch.Tensor,
                     direction: Tuple[int, int], p1: int,
                     label_ext: int | None = None,
                     nl: int | None = None) -> torch.Tensor:
-    """Plain PyTorch version: L_r as (H, W, D) int32, 0 in the slots past
-    nl.  A Python loop over the scan axis, vectorised over lines x labels."""
+    """Plain PyTorch version: L_r as (..., H, W, D) int32, 0 in the slots
+    past nl.  A Python loop over the scan axis, vectorised over frames x
+    lines x labels."""
     dy, dx = direction
-    h, w, nd = cost.shape
+    h, w, nd = cost.shape[-3:]
     nl = _labels(nd, label_ext, nl)
     c = cost[..., :nl].to(torch.int32)
-    out = torch.zeros((h, w, nd), dtype=torch.int32, device=cost.device)
+    out = torch.zeros(cost.shape, dtype=torch.int32, device=cost.device)
     if dy == 0:
         every = torch.ones(h, dtype=torch.bool, device=cost.device)
         xs = range(w) if dx > 0 else range(w - 1, -1, -1)
         for i, x in enumerate(xs):
             if i < abs(dx):
-                out[:, x, :nl] = c[:, x]
+                out[..., x, :nl] = c[..., x, :]
             else:
-                out[:, x, :nl] = _recurrence(out[:, x - dx, :nl], c[:, x],
-                                             every, p1, p2e[:, x], label_ext)
+                out[..., x, :nl] = _recurrence(
+                    out[..., x - dx, :nl], c[..., x, :], every, p1,
+                    p2e[..., x], label_ext)
         return out
     ys = range(h) if dy > 0 else range(h - 1, -1, -1)
     for i, y in enumerate(ys):
         if i < abs(dy):
-            out[y, :, :nl] = c[y]
+            out[..., y, :, :nl] = c[..., y, :, :]
             continue
         # the predecessor row shifted by dx, INF where x - dx is outside
-        row = out[y - dy, :, :nl]
+        row = out[..., y - dy, :, :nl]
         prev = torch.full_like(row, INF)
         valid = torch.zeros(w, dtype=torch.bool, device=cost.device)
         inside = slice(dx, None) if dx >= 0 else slice(None, dx)
         source = slice(None, w - dx) if dx >= 0 else slice(-dx, None)
-        prev[inside] = row[source]
+        prev[..., inside, :] = row[..., source, :]
         valid[inside] = True
-        out[y, :, :nl] = _recurrence(prev, c[y], valid, p1, p2e[y],
-                                     label_ext)
+        out[..., y, :, :nl] = _recurrence(prev, c[..., y, :, :], valid, p1,
+                                          p2e[..., y, :], label_ext)
     return out
 
 
@@ -148,22 +153,26 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
     """Aggregate one direction: S += L_r in place and return S, or, with
     s None, return a fresh S = L_r in s_dtype.
 
-    cost (H, W, D) u8 whose first nl (default D) slots are labels; p2e
-    (H, W) int32 from p2_effective; |dy|, |dx| <= 2; label_ext e: the
-    labels form an (e x e) grid (flow), None: a line (stereo)."""
+    cost (H, W, D) or (B, H, W, D) u8 whose first nl (default D) slots are
+    labels; p2e (H, W) or (B, H, W) int32 from p2_effective; |dy|, |dx| <=
+    2; label_ext e: the labels form an (e x e) grid (flow), None: a line
+    (stereo).  One kernel launch covers all B frames."""
     dy, dx = direction
     if (dy, dx) == (0, 0) or abs(dy) > 2 or abs(dx) > 2:
         raise ValueError(f"unsupported direction {direction}")
-    if cost.dtype != torch.uint8 or cost.dim() != 3:
-        raise TypeError("sgm_sweep takes an (H, W, D) uint8 cost volume")
-    h, w, nd = cost.shape
+    if cost.dtype != torch.uint8 or cost.dim() not in (3, 4):
+        raise TypeError("sgm_sweep takes an (H, W, D) or (B, H, W, D) uint8 "
+                        "cost volume")
+    h, w, nd = cost.shape[-3:]
     nl = _labels(nd, label_ext, nl)
-    if p2e.dtype != torch.int32 or tuple(p2e.shape) != (h, w):
-        raise TypeError("sgm_sweep takes an (H, W) int32 P2' table")
+    if p2e.dtype != torch.int32 or p2e.shape != cost.shape[:-1]:
+        raise TypeError(f"sgm_sweep takes a {tuple(cost.shape[:-1])} int32 "
+                        f"P2' table, got {tuple(p2e.shape)} {p2e.dtype}")
     if s is not None:
         s_dtype = s.dtype
-        if tuple(s.shape) != (h, w, nd):
-            raise ValueError(f"S shape {tuple(s.shape)} != {(h, w, nd)}")
+        if s.shape != cost.shape:
+            raise ValueError(f"S shape {tuple(s.shape)} != "
+                             f"{tuple(cost.shape)}")
     if s_dtype not in (torch.int16, torch.int32):
         raise TypeError(f"S dtype {s_dtype} is not int16 or int32")
     tensors = [cost, p2e] + ([s] if s is not None else [])
@@ -182,13 +191,14 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
         raise ValueError("sgm_sweep takes contiguous tensors")
     fresh = s is None
     if fresh:
-        s = torch.empty((h, w, nd), dtype=s_dtype, device=cost.device)
+        s = torch.empty(cost.shape, dtype=s_dtype, device=cost.device)
     if s.numel() == 0:
         return s
+    b = cost.shape[0] if cost.dim() == 4 else 1
     fn = _build.load("sgm_sweep")
     with torch.cuda.device(cost.device):
         err = fn(cost.data_ptr(), p2e.data_ptr(), s.data_ptr(),
-                 int(s_dtype == torch.int32), int(fresh), h, w, nd, nl,
+                 int(s_dtype == torch.int32), int(fresh), b, h, w, nd, nl,
                  label_ext or 0, dy, dx, p1, _build.stream_of(cost))
     _build.check(err, "sgm_sweep")
     _build.LAUNCHES["sgm_sweep"] += 1
@@ -201,8 +211,9 @@ def aggregate_paths(cost: torch.Tensor, img: torch.Tensor,
                     s_max: int | None = None,
                     label_ext: int | None = None,
                     nl: int | None = None) -> torch.Tensor:
-    """S = sum_r L_r through sgm_sweep, one launch per direction; (H, W, D)
-    in plan_dtypes(s_max)."""
+    """S = sum_r L_r through sgm_sweep, one launch per direction for all
+    frames; cost's shape ((H, W, D) or (B, H, W, D), img (H, W) or
+    (B, H, W)) in plan_dtypes(s_max)."""
     s = None
     for r in dirs:
         s = sgm_sweep(cost, p2_effective(img, r, p1, p2, adaptive_p2), r, p1,

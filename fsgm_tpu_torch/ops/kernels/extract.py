@@ -1,14 +1,17 @@
 """K3 extract_stereo and K4 extract_flow: the extraction passes over S.
 
 K3 replaces fsgm_tpu/ops/pallas/extract_tr.py::extract_stereo_major as the
-stereo main path calls it (with_sub, with_rwta, with_lr).  From the
-label-minor (H, W, D) S it returns five (H, W) int32 planes:
+stereo paths call it (with_sub, and with_rwta + with_lr unless the LR check
+is off or lr_mode="reagg" brings its own right view).  From the label-minor
+(H, W, D) S of one frame, or (B, H, W, D) of B frames in one launch, it
+returns five int32 planes of S's leading shape:
 
     d_int          argmin_d S, smallest d on ties
     s_m, s_0, s_p  S[d*-1], S[d*], S[d*+1] (BIG = 1 << 24 out of range)
     valid          1 where |dr - rho(x - dr)| <= max_diff and x >= dr,
                    dr = rint(subpixel d*) (d* without subpixel) and rho the
-                   right-view WTA argmin_d S(y, x+d, d), s_invalid past W
+                   right-view WTA argmin_d S(y, x+d, d), s_invalid past W;
+                   None without with_rwta
 
 K4 replaces fsgm_tpu/ops/pallas/extract_tr.py::extract_flow_major.  From
 the label-minor flow S, whose first nl = e * e slots are the (e x e) label
@@ -32,48 +35,56 @@ MAX_WIDTH = 232448 // 8  # two int32 rows of shared memory per block
 
 
 def extract_stereo_plain(s: torch.Tensor, s_invalid: int, max_diff: int = 1,
-                         with_sub: bool = True):
+                         with_sub: bool = True, with_rwta: bool = True):
     """Plain PyTorch version: packed-min WTA, one-hot neighbourhood and the
     index-arithmetic diagonal gather of ops/extract.py."""
     nd = s.shape[-1]
     d_int = ext.wta(s)
     s_m, s_0, s_p = ext.neighborhood_of_min(s, d_int)
+    if not with_rwta:
+        return d_int, s_m, s_0, s_p, None
     disp = (ext.subpixel_from_neighborhood(d_int, s_m, s_0, s_p, nd)
             if with_sub else d_int.to(torch.float32))
-    valid = ext.lr_valid(disp, ext.wta_right_from_s(s, s_invalid), max_diff)
+    valid = ext.lr_valid(disp, ext.wta_right_from_s(s, s_invalid), max_diff,
+                         nd)
     return d_int, s_m, s_0, s_p, valid.to(torch.int32)
 
 
 def extract_stereo(s: torch.Tensor, s_invalid: int, max_diff: int = 1,
-                   with_sub: bool = True):
-    """(H, W, D) int16/int32 S -> (d_int, s_m, s_0, s_p, valid), each
-    (H, W) int32."""
-    if s.dtype not in (torch.int16, torch.int32) or s.dim() != 3:
-        raise TypeError("extract_stereo takes an (H, W, D) int16/int32 S")
-    h, w, nd = s.shape
+                   with_sub: bool = True, with_rwta: bool = True):
+    """(H, W, D) or (B, H, W, D) int16/int32 S -> (d_int, s_m, s_0, s_p,
+    valid), each int32 of S's leading shape (valid None without
+    with_rwta).  One kernel launch covers all B frames."""
+    if s.dtype not in (torch.int16, torch.int32) or s.dim() not in (3, 4):
+        raise TypeError("extract_stereo takes an (H, W, D) or (B, H, W, D) "
+                        "int16/int32 S")
+    h, w, nd = s.shape[-3:]
     if not 0 < nd <= 256 or not 0 <= s_invalid < (1 << 22):
         raise ValueError("extract_stereo packs (S << 8) | d: needs D <= 256 "
                          "and s_invalid < 2^22")
     if s.device.type == "cpu":
-        return extract_stereo_plain(s, s_invalid, max_diff, with_sub)
+        return extract_stereo_plain(s, s_invalid, max_diff, with_sub,
+                                    with_rwta)
     if s.device.type != "cuda":
         raise ValueError(f"extract_stereo: unsupported device {s.device}")
     if nd % 32 != 0 or w > MAX_WIDTH or not s.is_contiguous():
         raise ValueError(f"extract_stereo kernel needs a contiguous S with D "
                          f"a multiple of 32 and W <= {MAX_WIDTH}, got "
                          f"{tuple(s.shape)}")
-    outs = [torch.empty((h, w), dtype=torch.int32, device=s.device)
-            for _ in range(5)]
-    if s.numel() == 0:
-        return tuple(outs)
-    fn = _build.load("extract")
-    with torch.cuda.device(s.device):
-        err = fn(s.data_ptr(), int(s.dtype == torch.int32),
-                 *(o.data_ptr() for o in outs), h, w, nd, s_invalid,
-                 max_diff, int(with_sub), _build.stream_of(s))
-    _build.check(err, "extract_stereo")
-    _build.LAUNCHES["extract_stereo"] += 1
-    return tuple(outs)
+    outs = [torch.empty(s.shape[:-1], dtype=torch.int32, device=s.device)
+            for _ in range(5 if with_rwta else 4)]
+    if s.numel() > 0:
+        ptrs = [o.data_ptr() for o in outs]
+        ptrs += [ptrs[0]] * (5 - len(ptrs))  # never written without rwta
+        b = s.shape[0] if s.dim() == 4 else 1
+        fn = _build.load("extract")
+        with torch.cuda.device(s.device):
+            err = fn(s.data_ptr(), int(s.dtype == torch.int32), *ptrs, b, h,
+                     w, nd, s_invalid, max_diff, int(with_sub),
+                     int(with_rwta), _build.stream_of(s))
+        _build.check(err, "extract_stereo")
+        _build.LAUNCHES["extract_stereo"] += 1
+    return tuple(outs) + (() if with_rwta else (None,))
 
 
 def extract_flow_plain(s: torch.Tensor, nl: int, label_ext: int,

@@ -2,25 +2,28 @@
 
     python -m fsgm_tpu_torch.utils.profiling [--pipeline stereo|flow] \\
         [--preset configs/kitti_stereo.json] [--height 375] [--width 1242] \\
-        [--calls 10] [--warmup 3] [--seed 0] [--device cuda]
+        [--batch 1] [--calls 10] [--warmup 3] [--seed 0] [--device cuda]
 
-``--pipeline stereo`` (the default) runs stereo_sgm on a random-dot pair
-of the given size at the preset's D (default preset configs/kitti_stereo.json);
-``--pipeline flow`` runs flow_fsgm on a blockwise_flow_pair of that size
-with motion up to 8 px (default preset configs/kitti_flow.json).  Each runs
-``warmup`` frames first, then prints one line per kernel name (launches per
-frame, ms per frame, share of the busy time), then the totals, and last the
-whole record as one JSON object:
+``--pipeline stereo`` (the default) runs stereo_sgm_batch on B random-dot
+pairs (seeds seed .. seed + B - 1; B = 1 is stereo_sgm) of the given size at
+the preset's D (default preset configs/kitti_stereo.json) in one call, and
+every number below is per frame, i.e. per call divided by B.
+``--pipeline flow`` runs flow_fsgm on a
+blockwise_flow_pair of that size with motion up to 8 px (default preset
+configs/kitti_flow.json).  Each runs ``warmup`` calls first, then prints
+one line per kernel name (launches per frame, ms per frame, share of the
+busy time), then the totals, and last the whole record as one JSON object:
 
   * ``busy_ms``: the sum of the rows, per frame, from torch.profiler over
-    ``calls`` back-to-back frames.  On a card the rows are the device's
+    ``calls`` back-to-back calls.  On a card the rows are the device's
     kernels (and memsets/copies); on the CPU they are the ops' self time;
-  * ``wall_ms``: one frame of ``calls`` back-to-back frames with the
+  * ``wall_ms``: one frame of ``calls`` back-to-back calls with the
     profiler off, by CUDA events on a card and the host clock on the CPU;
+  * ``launches``: device kernels, memsets and copies per frame;
   * ``busy_share`` = busy_ms / wall_ms; on a card, 1 - busy_share is the
     device's idle share;
-  * ``peak_mib``: the card's peak allocation over one frame (None on the
-    CPU).
+  * ``peak_mib``: the card's peak allocation over one call, i.e. all B
+    frames of a batch (None on the CPU).
 
 Counterpart, for the port, of fsgm_tpu/utils/profiling.py.
 """
@@ -32,13 +35,14 @@ import json
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from fsgm_tpu_torch.io import blockwise_flow_pair, random_dot_stereo
 from fsgm_tpu_torch.models.flow import flow_fsgm
-from fsgm_tpu_torch.models.stereo import stereo_sgm
+from fsgm_tpu_torch.models.stereo import stereo_sgm_batch
 from fsgm_tpu_torch.params import FlowParams, SGMParams, load_preset
 
 CONFIGS = Path(__file__).resolve().parents[2] / "configs"
@@ -71,8 +75,9 @@ def wall_ms(fn, dev: torch.device, calls: int) -> float:
 
 
 def profile_frames(frame, dev: torch.device, calls: int = 10,
-                   warmup: int = 3) -> dict:
-    """The breakdown record of ``frame()`` on device ``dev`` (see the module
+                   warmup: int = 3, frames_per_call: int = 1) -> dict:
+    """The per-frame breakdown record of ``frame()``, which computes
+    ``frames_per_call`` frames, on device ``dev`` (see the module
     docstring)."""
     cuda = dev.type == "cuda"
     for _ in range(warmup):
@@ -85,39 +90,44 @@ def profile_frames(frame, dev: torch.device, calls: int = 10,
             frame()
         _sync(dev)
     kind = DeviceType.CUDA if cuda else DeviceType.CPU
+    frames = calls * frames_per_call
     rows = []
     for e in prof.key_averages():
         us = e.self_device_time_total if cuda else e.self_cpu_time_total
         if e.device_type == kind and us > 0:
-            rows.append({"name": e.key, "launches": e.count / calls,
-                         "ms": us / 1e3 / calls})
+            rows.append({"name": e.key, "launches": e.count / frames,
+                         "ms": us / 1e3 / frames})
     if not rows:
         raise RuntimeError(f"torch.profiler recorded no {kind} time")
     rows.sort(key=lambda r: -r["ms"])
     busy = sum(r["ms"] for r in rows)
     for r in rows:
         r["share"] = r["ms"] / busy
-    wall = wall_ms(frame, dev, calls)
+    wall = wall_ms(frame, dev, calls) / frames_per_call
     peak = None
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
         frame()
         _sync(dev)
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
-    return {"device": str(dev), "calls": calls, "rows": rows,
+    return {"device": str(dev), "calls": calls,
+            "frames_per_call": frames_per_call, "rows": rows,
             "busy_ms": busy, "wall_ms": wall, "busy_share": busy / wall,
-            "peak_mib": peak}
+            "launches": sum(r["launches"] for r in rows), "peak_mib": peak}
 
 
-def profile_stereo(img_l: torch.Tensor, img_r: torch.Tensor,
+def profile_stereo(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
                    params: SGMParams, calls: int = 10,
                    warmup: int = 3) -> dict:
-    """The breakdown record of stereo_sgm(img_l, img_r, params); the device
-    is the images'."""
-    rec = profile_frames(lambda: stereo_sgm(img_l, img_r, params),
-                         img_l.device, calls, warmup)
-    return {"pipeline": "stereo", "shape": [*img_l.shape, params.max_disp],
-            **rec}
+    """The per-frame breakdown record of stereo_sgm_batch(imgs_l, imgs_r,
+    params) over (B, H, W) pairs, or of one (H, W) pair as a batch of 1;
+    the device is the images'."""
+    if imgs_l.dim() == 2:
+        imgs_l, imgs_r = imgs_l[None], imgs_r[None]
+    rec = profile_frames(lambda: stereo_sgm_batch(imgs_l, imgs_r, params),
+                         imgs_l.device, calls, warmup, imgs_l.shape[0])
+    return {"pipeline": "stereo", "batch": imgs_l.shape[0],
+            "shape": [*imgs_l.shape[1:], params.max_disp], **rec}
 
 
 def profile_flow(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
@@ -136,6 +146,8 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", help="default: configs/kitti_<pipeline>.json")
     ap.add_argument("--height", type=int, default=375)
     ap.add_argument("--width", type=int, default=1242)
+    ap.add_argument("--batch", type=int, default=1, help="stereo: B frames "
+                    "per stereo_sgm_batch call (numbers per frame)")
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -145,10 +157,16 @@ def main(argv=None) -> int:
         raise SystemExit("--device cuda: no CUDA device is available")
     dev = torch.device(args.device)
     preset = load_preset(args.preset or str(PRESETS[args.pipeline]))
+    if args.batch < 1 or (args.batch > 1 and args.pipeline != "stereo"):
+        raise SystemExit("--batch B takes B >= 1, and B > 1 only with the "
+                         "stereo pipeline")
     if args.pipeline == "stereo":
         params = preset["sgm"]
-        a, b, _ = random_dot_stereo(args.height, args.width, params.max_disp,
-                                    seed=args.seed)
+        pairs = [random_dot_stereo(args.height, args.width, params.max_disp,
+                                   seed=args.seed + k)
+                 for k in range(args.batch)]
+        a = np.stack([p[0] for p in pairs])
+        b = np.stack([p[1] for p in pairs])
         run = profile_stereo
     else:
         params = preset["flow"]
@@ -163,9 +181,10 @@ def main(argv=None) -> int:
         print(f"{r['share']:7.2%} {r['ms']:9.4f} ms/frame "
               f"{r['launches']:6.1f} launches/frame  {r['name'][:110]}")
     print(f"busy {rec['busy_ms']:.4f} ms/frame, wall {rec['wall_ms']:.4f} "
-          f"ms/frame, busy share {rec['busy_share']:.4f}, peak "
-          f"{rec['peak_mib']} MiB ({rec['device']}, {rec['pipeline']}, "
-          f"shape {rec['shape']})")
+          f"ms/frame, busy share {rec['busy_share']:.4f}, "
+          f"{rec['launches']:.2f} launches/frame, peak {rec['peak_mib']} MiB "
+          f"({rec['device']}, {rec['pipeline']}, {rec['frames_per_call']} "
+          f"frame(s) per call, shape {rec['shape']})")
     print(json.dumps(rec))
     return 0
 

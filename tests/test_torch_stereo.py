@@ -8,8 +8,9 @@
   * stereo_sgm_batch == per-frame stereo_sgm; the CLI on PNGs; importing
     the port loads no module of jax, fsgm_tpu or golden; every
     configs/*.json loads into the port's parameter classes equal to the
-    JAX package's; lr_mode="reagg" is refused, not substituted; the
-    profiler's breakdown adds up.
+    JAX package's; lr_mode="reagg" and fill_invalid are honoured, not
+    substituted (golden/sgm.py); the profiler's breakdown adds up, for one
+    frame and per frame of a batch.
 The kernels themselves are checked on the card by chip_smoke.py and by the
 `cuda`-marked test here, which skips without a card.
 """
@@ -114,9 +115,16 @@ def test_batch_equals_per_frame():
 @pytest.mark.parametrize("kw", [dict(lr_mode="reagg"),
                                 dict(fill_invalid=True)])
 def test_unported_options_are_refused(kw):
-    img = torch.zeros((8, 12), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="A7"):
-        stereo_sgm(img, img, SGMParams(max_disp=16, **kw))
+    """Once refused, now ported: each option runs and gives golden's
+    result, which differs from the result without it (so it is not
+    silently dropped)."""
+    il, ir, _ = random_dot_stereo(20, 36, 16, seed=9)
+    p = SGMParams(max_disp=16, p1=7, p2=60, **kw)
+    ours = stereo_sgm(_t(il), _t(ir), p).numpy()
+    _assert_disp_close(ours, g.sgm_stereo(il, ir, p))
+    plain = stereo_sgm(_t(il), _t(ir), SGMParams(max_disp=16, p1=7,
+                                                 p2=60)).numpy()
+    assert not np.array_equal(ours, plain)
 
 
 def test_cli_stereo_on_cpu(tmp_path, capsys):
@@ -154,6 +162,12 @@ def test_profile_breakdown_adds_up_on_cpu():
     rec = profile_stereo(_t(il), _t(ir), SGMParams(max_disp=16), calls=1,
                          warmup=0)
     assert rec["device"] == "cpu" and rec["peak_mib"] is None
+    assert rec["batch"] == 1 and rec["shape"] == [16, 24, 16]
+    batch = profile_stereo(_t(np.stack([il, il])), _t(np.stack([ir, ir])),
+                           SGMParams(max_disp=16), calls=1, warmup=0)
+    assert batch["batch"] == 2 and batch["frames_per_call"] == 2
+    assert batch["launches"] == pytest.approx(
+        sum(r["launches"] for r in batch["rows"]))
     assert rec["rows"] and all(r["ms"] > 0 for r in rec["rows"])
     assert sum(r["ms"] for r in rec["rows"]) == pytest.approx(rec["busy_ms"])
     assert sum(r["share"] for r in rec["rows"]) == pytest.approx(1.0)
