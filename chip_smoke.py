@@ -2,10 +2,13 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
-Three main paths: stereo (configs/kitti_stereo.json, 375x1242, D=128), fSGM
-flow (configs/kitti_flow.json, 375x1242, 4 levels, 81 labels) and batched
-stereo (stereo_sgm_batch, 16 frames of config 2 in one pass).  Phases, each
-of which raises on failure (non-zero exit, no ok line):
+Five main paths: stereo (configs/kitti_stereo.json, 375x1242, D=128), fSGM
+flow (configs/kitti_flow.json, 375x1242, 4 levels, 81 labels), batched
+stereo (stereo_sgm_batch, 16 frames of config 2 in one pass), tiled stereo
+(stereo_sgm_sharded at config 5, configs/tiled_4k.json: 2 frames of
+2160x3840, D=128, 2 frame shards x 4 row tiles, fast mode) and tiled flow
+(flow_fsgm_sharded, config 4 at 4K with 5 levels, 3 row tiles).  Phases,
+each of which raises on failure (non-zero exit, no ok line):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the five kernels from fsgm_tpu_torch/csrc, one nvcc per source,
@@ -45,7 +48,33 @@ of which raises on failure (non-zero exit, no ok line):
      over the 16 frames of the batched path), K5 beside PyTorch's own axis
      exchange (library_ms), the device launches of the plain-torch flow
      cost build and census, the pipelines end to end, and the batched
-     path's ms and launches per frame at B=1 and B=16.
+     path's ms and launches per frame at B=1 and B=16;
+  8. tiled: (a) K2 with carry in and out against its plain version, exact:
+     on one config-5 tile (rows 540..1079 of 2 frames, 3840x128) in the six
+     vertical directions, each from the carry K2 exported over the tile
+     above (down) or below (up); at 37x53, D=32, 16 paths, adaptive P2,
+     on a 13-row and a 1-row tile; with the 2D label rule at 37x53 radius
+     2; (b) K3 with window columns (gx0 < 0, gx0 + W > w_global) against
+     its plain version, on KITTI's two column windows and on a random
+     int32 volume; (c) config 5 as the preset gives it (fast, auto margin)
+     equal to its plain twin stereo_sgm_sharded_reference (the plain K1,
+     K2 and K3 on the same tiles) bit for bit, its differing pixel share
+     against stereo_sgm_batch printed, and in exact mode equal to
+     stereo_sgm_batch on the 2 frames bit for bit (the tiled stereo path:
+     launches counted, and the counters); (d)
+     KITTI at 3 row tiles: x 2 column tiles exact and lr_mode="reagg"
+     equal to stereo_sgm, fast with margin 8 equal to the plain twin
+     stereo_sgm_sharded_reference; (e) the 4K flow leg (config 4 with 5
+     levels, fb_grid="full") at 3 row tiles, exact, equal to flow_fsgm
+     (the tiled flow path: launches counted), and K5, K2 (2D rule, with the
+     carries from the tiles above and below) and K4 against their plain
+     versions, exact, on its level-0 tile 1 (rows 720..1439 of 2160x3840,
+     81 labels in 96 slots); (f) CUDA-event ms per frame
+     and peak memory of tiled config 5 (fast, exact) against
+     stereo_sgm_batch and of tiled 4K flow against flow_fsgm, and the times
+     of K2 with carry on the config-5 tile (and of its two horizontal
+     directions on one frame of it, held to their plain versions) and of
+     K3 on a KITTI window.
 
 Each kernel's bound_ms is the larger of two times for this run's shapes:
 the bytes it must move (each input read once, each output written once;
@@ -57,7 +86,8 @@ Operations per element: K1 3 (xor, popcount, select) per cost
 byte; K2 8 per label and direction for 1D labels (two shuffled neighbours,
 +P1, three mins, +C-m, the warp min), 11 for 2D labels (two more neighbour
 mins); K3 6 per S value (two packed keys, two mins); K4 3 per S value
-(shift, or, min); K5 none.
+(shift, or, min); K5 none.  K2 with carry also reads and writes two
+carry rows per direction; K3 on a window counts the window's columns.
 
 The run fails if anything in it loaded a module of jax, fsgm_tpu or golden.
 The last lines are the per-kernel JSON record, the card line, and
@@ -98,17 +128,22 @@ SOURCES = {
     "census_cost": ("cost", "fsgm_tpu/ops/pallas/cost_tr.py:106",
                     ["fsgm_tpu/ops/pallas/cost_tr.py:264",
                      "fsgm_tpu/ops/pallas/cost_tr.py:158"],
-                    ("stereo", "stereo_batch")),
+                    ("stereo", "stereo_batch", "stereo_tiled")),
     "sgm_sweep": ("sgm_sweep", "fsgm_tpu/ops/pallas/aggregate_tr.py:289",
-                  None, ("stereo", "flow", "stereo_batch")),
+                  ["fsgm_tpu/ops/pallas/aggregate_pallas.py:297",
+                   "fsgm_tpu/ops/pallas/aggregate_pallas.py:420"],
+                  ("stereo", "flow", "stereo_batch", "stereo_tiled",
+                   "flow_tiled")),
     "extract_stereo": ("extract", "fsgm_tpu/ops/pallas/extract_tr.py:227",
-                       None, ("stereo", "stereo_batch")),
+                       None, ("stereo", "stereo_batch", "stereo_tiled")),
     "extract_flow": ("extract_flow", "fsgm_tpu/ops/pallas/extract_tr.py:387",
-                     None, ("flow",)),
+                     None, ("flow", "flow_tiled")),
     "label_minor_from_major": (
         "transpose", "fsgm_tpu/ops/pallas/transpose_pallas.py:83", None,
-        ("flow",)),
+        ("flow", "flow_tiled")),
 }
+CONFIG5 = "configs/tiled_4k.json"
+UHD_FLOW_LEVELS = 5  # bench.py's 4kflow leg: config 4 with one more level
 FOREIGN = ("jax", "fsgm_tpu", "golden")
 
 
@@ -493,12 +528,27 @@ def flow_sweeps(lv, cost, plain: bool = False):
     return s
 
 
+def k4_err(s, nl, e, tag: str) -> int:
+    """K4 with and without subpixel against its plain version on S; the
+    largest absolute error (must be 0)."""
+    from fsgm_tpu_torch.ops.kernels import extract
+    k4 = 0
+    for with_sub in (True, False):
+        got = extract.extract_flow(s, nl, e, with_sub)
+        want = extract.extract_flow_plain(s, nl, e, with_sub)
+        got = (got[0],) + (got[1] + got[2] if with_sub else ())
+        want = (want[0],) + (want[1] + want[2] if with_sub else ())
+        k4 = max([k4] + [max_err(a, b) for a, b in zip(got, want)])
+    require(k4 == 0, f"{tag} extract_flow != plain")
+    return k4
+
+
 def check_flow_kernels(hw, params, dev, tag: str) -> dict:
     """K5, K2 (2D rule, each direction and the sum) and K4 (with and
     without subpixel) against their plain versions on one flow level;
     returns the largest absolute error per kernel (all must be 0)."""
     from fsgm_tpu_torch.ops.kernels import aggregate as agg
-    from fsgm_tpu_torch.ops.kernels import extract, transpose
+    from fsgm_tpu_torch.ops.kernels import transpose
 
     lv = flow_level(hw, params, dev)
     c = transpose.label_minor_from_major(lv["cost_m"])
@@ -518,15 +568,7 @@ def check_flow_kernels(hw, params, dev, tag: str) -> dict:
     e = max_err(s, s_ref)
     require(s.dtype == s_ref.dtype and e == 0, f"{tag} flow S != plain")
     errs["sgm_sweep"] = max(sweep_err, e)
-    k4 = 0
-    for with_sub in (True, False):
-        got = extract.extract_flow(s, lv["nl"], lv["e"], with_sub)
-        want = extract.extract_flow_plain(s, lv["nl"], lv["e"], with_sub)
-        got = (got[0],) + (got[1] + got[2] if with_sub else ())
-        want = (want[0],) + (want[1] + want[2] if with_sub else ())
-        k4 = max([k4] + [max_err(a, b) for a, b in zip(got, want)])
-    errs["extract_flow"] = k4
-    require(k4 == 0, f"{tag} extract_flow != plain")
+    errs["extract_flow"] = k4_err(s, lv["nl"], lv["e"], tag)
     print(f"{tag} flow kernels == plain (S {s.dtype}, "
           f"{tuple(c.shape)} label-minor cost): {errs}")
     return errs
@@ -538,6 +580,414 @@ def merge_errs(*dicts) -> dict:
         for k, v in d.items():
             out[k] = max(out.get(k, 0), v)
     return out
+
+
+def carry_case(cost, img, rows, dirs, p1, p2, adaptive, s_dtype, tag,
+               label_ext=None, nl=None, with_s: bool = False):
+    """K2 with carry in and out on the tile cost[..., lo:hi, :, :] against
+    sgm_sweep_plain, each vertical direction from the carry K2 exported
+    over the rows above (down) or below (up) the tile, with the image rows
+    beyond its seams as the P2' halos; the largest absolute error, and
+    with ``with_s`` also the kernel's S summed over those directions."""
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    h = cost.shape[-3]
+    lo, hi = rows
+    kw = dict(s_dtype=s_dtype, label_ext=label_ext, nl=nl)
+
+    def part(a, b, r):
+        p2e = agg.p2_effective(img[..., a:b, :].contiguous(), r, p1, p2,
+                               adaptive,
+                               img[..., a - 2:a, :] if a >= 2 else None,
+                               img[..., b:b + 2, :] if b + 2 <= h else None)
+        return cost[..., a:b, :, :].contiguous(), p2e
+
+    worst, s_sum = 0, None
+    for r in [q for q in dirs if q[0] != 0]:
+        c, p2e = part(*((0, lo) if r[0] > 0 else (hi, h)), r)
+        carry = agg.sgm_sweep(c, p2e, r, p1, return_carry=True, **kw)[1]
+        c, p2e = part(lo, hi, r)
+        got = agg.sgm_sweep(c, p2e, r, p1, init_carry=carry,
+                            return_carry=True, **kw)
+        want = agg.sgm_sweep_plain(c, p2e, r, p1, label_ext, nl, carry,
+                                   return_carry=True)
+        e = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+        require(e == 0, f"{tag} sgm_sweep with carry {r} != plain ({e})")
+        worst = max(worst, e)
+        if with_s:
+            s_sum = got[0] if s_sum is None else s_sum + got[0]
+        del got, want
+    print(f"{tag}: K2 with carry == plain on rows {lo}..{hi - 1} "
+          f"({tuple(cost.shape)}), max_abs_err {worst}")
+    return (worst, s_sum) if with_s else worst
+
+
+def kitti_windows(params, dev):
+    """KITTI's two column windows at tiles_x = 2 (config 2, auto margin):
+    [(window left, window right, gx0)], the images gathered and edge-
+    repeated as the tiled path does."""
+    from fsgm_tpu_torch import DistParams
+    from fsgm_tpu_torch.parallel import tiled
+    h, w, d = KITTI
+    tl, tr, _ = pair(h, w, d, SEED, dev)
+    ex = tiled.window_extension(params, DistParams(tiles_x=2))
+    wt = w // 2
+    rows = [[x[None, :, k * wt:(k + 1) * wt] for k in range(2)]
+            for x in (tl, tr)]
+    return [(tiled._window(rows[0], k, ex, None),
+             tiled._window(rows[1], k, ex, None), k * wt - ex)
+            for k in range(2)]
+
+
+def window_s(wl, wr, gx0, params):
+    """S of a column window in global columns (K1, the cost's global
+    masking, K2 over the window)."""
+    from fsgm_tpu_torch.ops.census import census_transform
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    from fsgm_tpu_torch.ops.kernels import cost
+    from fsgm_tpu_torch.parallel import tiled
+    c = cost.census_cost(census_transform(wl, params.census_window),
+                         census_transform(wr, params.census_window),
+                         params.max_disp, params.invalid_cost)
+    c = tiled._globalize_cost(c, gx0, KITTI[1], params.invalid_cost, False)
+    return agg.aggregate_paths(c, wl, params.dirs, params.p1, params.p2,
+                               params.adaptive_p2, params.s_invalid)
+
+
+def check_tiled_kernels(params, dev) -> dict:
+    """8(a) K2 with carry and 8(b) K3 with window columns against their
+    plain versions; the largest absolute error per kernel."""
+    from fsgm_tpu_torch import DIRS_8, FlowParams, SGMParams, load_preset
+    from fsgm_tpu_torch.ops.census import census_transform
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    from fsgm_tpu_torch.ops.kernels import cost, extract, transpose
+
+    p5 = load_preset(CONFIG5)["sgm"]
+    h, w, d = UHD
+    ht = h // load_preset(CONFIG5)["dist"].tiles_y
+    tl, tr = frame_stack(h, w, d, 2, SEED, dev)
+    c = cost.census_cost(census_transform(tl, p5.census_window),
+                         census_transform(tr, p5.census_window), d,
+                         p5.invalid_cost)
+    k2 = carry_case(c, tl, (ht, 2 * ht), p5.dirs, p5.p1, p5.p2,
+                    p5.adaptive_p2, agg.plan_dtypes(p5.s_invalid),
+                    "config-5 tile 540x3840x128, 2 frames")
+    del c, tl, tr
+    small = SGMParams(max_disp=SMALL[2], p1=7, p2=60, adaptive_p2=True,
+                      num_paths=16)
+    sl, sr = frame_stack(*SMALL, 2, SEED, dev, bleed=True)
+    c = cost.census_cost(census_transform(sl), census_transform(sr),
+                         SMALL[2])
+    for rows in ((12, 25), (12, 13)):
+        k2 = max(k2, carry_case(c, sl, rows, small.dirs, small.p1, small.p2,
+                                True, agg.plan_dtypes(small.s_invalid),
+                                "37x53x32 16-path adaptive, 2 frames"))
+    fsmall = FlowParams(search_radius=2, levels=3, adaptive_p2=True)
+    lv = flow_level(FLOW_SMALL, fsmall, dev)
+    k2 = max(k2, carry_case(transpose.label_minor_from_major(lv["cost_m"]),
+                            lv["img"], (12, 25), DIRS_8, fsmall.p1,
+                            fsmall.p2, True, lv["s_dtype"],
+                            "37x53 flow radius 2 (2D labels, 25 in 32)",
+                            label_ext=lv["e"], nl=lv["nl"]))
+    k3 = 0
+    windows = [(window_s(wl, wr, gx0, params), gx0, KITTI[1])
+               for wl, wr, gx0 in kitti_windows(params, dev)]
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    ties = torch.randint(0, 4, (24, 40, 64), generator=g, dtype=torch.int32)
+    windows += [(ties.to(dev), -9, 30), (ties.to(dev), 5, 20)]
+    for s, gx0, w_global in windows:
+        for with_rwta in (True, False):
+            got = extract.extract_stereo(s, params.s_invalid,
+                                         params.lr_max_diff, params.subpixel,
+                                         with_rwta, gx0, w_global)
+            want = extract.extract_stereo_plain(
+                s, params.s_invalid, params.lr_max_diff, params.subpixel,
+                with_rwta, gx0, w_global)
+            k3 = max([k3] + [max_err(a, b) for a, b in zip(got, want)
+                             if a is not None])
+        require(k3 == 0, f"extract_stereo window gx0={gx0} != plain")
+        print(f"K3 on a window {tuple(s.shape)}, gx0 {gx0}, w_global "
+              f"{w_global}: == plain (max_abs_err {k3})")
+    return {"sgm_sweep": k2, "extract_stereo": k3}
+
+
+def check_config5(dev) -> dict:
+    """8(c): config 5 as the preset gives it against its plain twin, and in
+    exact mode against stereo_sgm_batch, on its 2 frames; the tiled path's
+    launches."""
+    from fsgm_tpu_torch import (load_preset, stereo_sgm_batch,
+                                stereo_sgm_sharded,
+                                stereo_sgm_sharded_reference)
+    from fsgm_tpu_torch.ops.kernels import _build
+
+    preset = load_preset(CONFIG5)
+    params, dist = preset["sgm"], preset["dist"]
+    h, w, d = UHD
+    tl, tr = frame_stack(h, w, d, 2, SEED, dev)
+    want = stereo_sgm_batch(tl, tr, params)
+    counters = {}
+    _build.LAUNCHES.clear()
+    got = stereo_sgm_sharded(tl, tr, params, dist, counters=counters)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    tiles = dist.frame_shards * dist.tiles_y
+    # two passes per vertical direction, but for the family's first tile
+    n_v = sum(1 for r in params.dirs if r[0] != 0)
+    sweeps = tiles * (len(params.dirs) + n_v) - dist.frame_shards * n_v
+    print(f"launches in one stereo_sgm_sharded call (config 5, {dist}): "
+          f"{launches}; counters: rows "
+          f"{ {k: sum(v) for k, v in counters['rows'].items()} }, bytes "
+          f"{counters['bytes']}")
+    require(launches == {"census_cost": tiles, "sgm_sweep": sweeps,
+                         "extract_stereo": tiles},
+            f"config-5 tiled launches {launches}")
+    require(tuple(got.shape) == (2, h, w) and bool(torch.isfinite(got).all()),
+            "config-5 tiled shape / finiteness")
+    # the plain twin runs the plain K1, K2 and K3 on the same tiles
+    ref = stereo_sgm_sharded_reference(tl, tr, params, dist)
+    require(torch.equal(got, ref), "config-5 fast != its plain twin")
+    differ = float((got != want).float().mean())
+    print(f"config 5 tiled (fast, auto margin) == "
+          f"stereo_sgm_sharded_reference bit for bit; differs from "
+          f"stereo_sgm_batch at {differ} of the pixels")
+    exact = dataclasses.replace(dist, tile_mode="exact")
+    require(torch.equal(stereo_sgm_sharded(tl, tr, params, exact), want),
+            "config-5 exact tiled != stereo_sgm_batch")
+    print("config 5 tiled, exact mode == stereo_sgm_batch bit for bit")
+    return launches
+
+
+def check_kitti_tiled(params, dev) -> None:
+    """8(d): KITTI at 3 row tiles."""
+    from fsgm_tpu_torch import (DistParams, stereo_sgm, stereo_sgm_sharded,
+                                stereo_sgm_sharded_reference)
+    h, w, d = KITTI
+    tl, tr, _ = pair(h, w, d, SEED, dev)
+    il, ir = tl[None], tr[None]
+    want = stereo_sgm(tl, tr, params)
+    got = stereo_sgm_sharded(il, ir, params, DistParams(tiles_y=3,
+                                                        tiles_x=2))[0]
+    require(torch.equal(got, want), "KITTI ty=3 x tx=2 exact != stereo_sgm")
+    fast = DistParams(tiles_y=3, tile_mode="fast", margin=8)
+    got = stereo_sgm_sharded(il, ir, params, fast)
+    require(torch.equal(got, stereo_sgm_sharded_reference(il, ir, params,
+                                                          fast)),
+            "KITTI ty=3 fast margin 8 != stereo_sgm_sharded_reference")
+    differ = float((got[0] != want).float().mean())
+    reagg = dataclasses.replace(params, lr_mode="reagg")
+    require(torch.equal(stereo_sgm_sharded(il, ir, reagg,
+                                           DistParams(tiles_y=3))[0],
+                        stereo_sgm(tl, tr, reagg)),
+            "KITTI ty=3 reagg != stereo_sgm")
+    print(f"KITTI tiled: ty=3 x tx=2 exact == stereo_sgm; ty=3 fast margin "
+          f"8 == plain twin (differs from untiled at {differ} of the "
+          f"pixels); ty=3 reagg == stereo_sgm")
+
+
+def uhd_flow(dev):
+    """The 4K flow leg: config 4 with 5 levels and fb_grid "full", its
+    pair, and the 3-row-tile distribution."""
+    from fsgm_tpu_torch import DistParams, load_preset
+    fp = dataclasses.replace(load_preset("configs/kitti_flow.json")["flow"],
+                             levels=UHD_FLOW_LEVELS, fb_grid="full")
+    f1, f2, _, _ = flow_pair(UHD[0], UHD[1], SEED, dev)
+    return fp, f1, f2, DistParams(tiles_y=3)
+
+
+def check_uhd_flow_tile(dev) -> dict:
+    """8(e) kernels at the tiled flow path's largest shape: K5, K2 with the
+    2D rule and carries, and K4 against their plain versions on level-0
+    tile 1 of the 4K flow leg (rows 720..1439 of 2160x3840, 81 labels in
+    96 slots, non-zero prior), the carries from the tiles above (down) and
+    below (up); the largest absolute error per kernel (all must be 0)."""
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    from fsgm_tpu_torch.ops.kernels import transpose
+    fp, _, _, dist = uhd_flow(dev)
+    lv = flow_level(UHD[:2], fp, dev)
+    ht = UHD[0] // dist.tiles_y
+    lo, hi = ht, 2 * ht
+    tag = f"4K flow level-0 tile rows {lo}..{hi - 1}"
+    tile_m = lv["cost_m"][lo:hi].contiguous()
+    c_tile = transpose.label_minor_from_major(tile_m)
+    errs = {"label_minor_from_major": max_err(
+        c_tile, transpose.label_minor_from_major_plain(tile_m))}
+    require(errs["label_minor_from_major"] == 0, f"{tag}: K5 != plain")
+    c = transpose.label_minor_from_major(lv.pop("cost_m"))
+    del tile_m
+    errs["sgm_sweep"], s = carry_case(
+        c, lv["img"], (lo, hi), lv["dirs"], lv["p1"], fp.p2, fp.adaptive_p2,
+        lv["s_dtype"], f"{tag} (2D labels, {lv['nl']} in {c.shape[-1]})",
+        label_ext=lv["e"], nl=lv["nl"], with_s=True)
+    del c
+    for r, p2e in zip(lv["dirs"], lv["p2es"]):
+        if r[0] == 0:
+            s = agg.sgm_sweep(c_tile, p2e[lo:hi].contiguous(), r, lv["p1"],
+                              s=s, s_dtype=lv["s_dtype"], label_ext=lv["e"],
+                              nl=lv["nl"])
+    errs["extract_flow"] = k4_err(s, lv["nl"], lv["e"], tag)
+    print(f"{tag}: K5, K2 with carry and K4 (S {s.dtype} "
+          f"{tuple(s.shape)}) == plain: {errs}")
+    return errs
+
+
+def check_uhd_flow(dev) -> dict:
+    """8(e): the 4K flow leg tiled (exact) against flow_fsgm; the tiled
+    flow path's launches."""
+    from fsgm_tpu_torch import flow_fsgm, flow_fsgm_sharded
+    from fsgm_tpu_torch.ops.kernels import _build
+    fp, f1, f2, dist = uhd_flow(dev)
+    want, want_valid = flow_fsgm(f1, f2, fp)
+    counters = {}
+    _build.LAUNCHES.clear()
+    got, valid = flow_fsgm_sharded(f1[None], f2[None], fp, dist,
+                                   counters=counters)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"launches in one flow_fsgm_sharded call (4K, {dist}): "
+          f"{launches}; bytes handed between tiles {counters['bytes']}")
+    require(torch.equal(got[0], want) and torch.equal(valid[0], want_valid),
+            "4K tiled flow != flow_fsgm")
+    require(bool(valid.any()), "4K tiled flow: no valid pixel")
+    print(f"4K flow tiled (3 row tiles, exact, {fp.levels} levels) == "
+          f"flow_fsgm bit for bit; valid share "
+          f"{float(valid.float().mean()):.4f}")
+    return launches
+
+
+def time_peak(fn, frames: int, reps: int = 3) -> dict:
+    """CUDA-event ms per frame (median of reps after a warm-up) and the
+    peak allocation of one call in MiB."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    return dict(ms=median_ms(fn, reps=reps, warmup=0) / frames,
+                peak_mib=peak)
+
+
+def time_tiled(params, dev, card_line: str) -> dict:
+    """8(f): the tiled paths' ms per frame and peak memory beside their
+    untiled counterparts, and the times of K2 with carry on a config-5
+    tile and of K3 on a KITTI window, with their bounds."""
+    from fsgm_tpu_torch import (flow_fsgm, flow_fsgm_sharded, load_preset,
+                                stereo_sgm_batch, stereo_sgm_sharded)
+    from fsgm_tpu_torch.ops.census import census_transform
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    from fsgm_tpu_torch.ops.kernels import cost, extract
+
+    preset = load_preset(CONFIG5)
+    p5, dist = preset["sgm"], preset["dist"]
+    h, w, d = UHD
+    tl, tr = frame_stack(h, w, d, 2, SEED, dev)
+    e2e = {
+        "stereo_tiled_fast": time_peak(
+            lambda: stereo_sgm_sharded(tl, tr, p5, dist), 2),
+        "stereo_tiled_exact": time_peak(lambda: stereo_sgm_sharded(
+            tl, tr, p5, dataclasses.replace(dist, tile_mode="exact")), 2),
+        "stereo_batch": time_peak(lambda: stereo_sgm_batch(tl, tr, p5), 2)}
+    for k, v in e2e.items():
+        print(f"time {k} (config 5, 2 frames of {h}x{w}x{d}): "
+              f"{v['ms']:.4f} ms/frame, peak {v['peak_mib']:.1f} MiB "
+              f"({card_line})")
+    fp, f1, f2, fdist = uhd_flow(dev)
+    flow_t = {
+        "flow_tiled": time_peak(lambda: flow_fsgm_sharded(
+            f1[None], f2[None], fp, fdist), 1),
+        "flow": time_peak(lambda: flow_fsgm(f1, f2, fp), 1)}
+    for k, v in flow_t.items():
+        print(f"time {k} (4K flow, {fp.levels} levels, 3 row tiles when "
+              f"tiled): {v['ms']:.4f} ms/frame, peak {v['peak_mib']:.1f} "
+              f"MiB ({card_line})")
+    e2e.update(flow_t)
+    del f1, f2
+
+    # K2 with carry: the six vertical directions of tile 1 of config 5
+    ht = h // dist.tiles_y
+    c = cost.census_cost(census_transform(tl[:, ht:2 * ht].contiguous()),
+                         census_transform(tr[:, ht:2 * ht].contiguous()), d,
+                         p5.invalid_cost)
+    b = c.shape[0]
+    vert = [r for r in p5.dirs if r[0] != 0]
+    p2es = [agg.p2_effective(tl[:, ht:2 * ht], r, p5.p1, p5.p2,
+                             p5.adaptive_p2) for r in vert]
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    carries = [torch.randint(0, 300, (b, 2, w, d), generator=g,
+                             dtype=torch.int32).to(dev) for _ in vert]
+    s_dtype = agg.plan_dtypes(p5.s_invalid)
+
+    def family(plain: bool = False):
+        sweep = agg.sgm_sweep_plain_into if plain else agg.sgm_sweep
+        s = None
+        for r, p2e, cin in zip(vert, p2es, carries):
+            s, _ = sweep(c, p2e, r, p5.p1, s=s, s_dtype=s_dtype,
+                         init_carry=cin, return_carry=True)
+        return s
+
+    hwd = b * ht * w * d
+    s_bytes = torch.tensor([], dtype=s_dtype).element_size()
+    carry_b = len(vert) * 2 * b * 2 * w * d * 4
+    nbytes = hwd + len(vert) * b * ht * w * 4 + hwd * s_bytes + carry_b
+    nops = 8 * len(vert) * hwd
+    b_ms, b_by = bound(nbytes, nops)
+    carry_row = dict(shape=[b, ht, w, d], launches=len(vert),
+                     ms=median_ms(family, reps=5, warmup=1),
+                     plain_ms=median_ms(lambda: family(True), reps=1,
+                                        warmup=0),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"time sgm_sweep with carry ({len(vert)} vertical directions of a "
+          f"config-5 tile {(b, ht, w, d)}): kernel {carry_row['ms']:.4f} ms, "
+          f"plain {carry_row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by "
+          f"{b_by} ({nbytes} B, {nops} ops) ({card_line})")
+
+    # the horizontal directions of the same tile in one frame, as a shard
+    # of config 5 (one frame per shard) runs them
+    horiz = [r for r in p5.dirs if r[0] == 0]
+    c1 = c[:1].contiguous()
+    p2h = [agg.p2_effective(tl[:1, ht:2 * ht], r, p5.p1, p5.p2,
+                            p5.adaptive_p2) for r in horiz]
+
+    def rows_sweeps(plain: bool = False):
+        sweep = agg.sgm_sweep_plain_into if plain else agg.sgm_sweep
+        s = None
+        for r, p2e in zip(horiz, p2h):
+            s = sweep(c1, p2e, r, p5.p1, s=s, s_dtype=s_dtype)
+        return s
+
+    e = max_err(rows_sweeps(), rows_sweeps(True))
+    require(e == 0, f"config-5 tile horizontal sweeps != plain ({e})")
+    hwd1 = ht * w * d
+    nbytes = hwd1 + len(horiz) * ht * w * 4 + hwd1 * s_bytes
+    b_ms, b_by = bound(nbytes, 8 * len(horiz) * hwd1)
+    horiz_row = dict(shape=[1, ht, w, d], launches=len(horiz),
+                     ms=median_ms(rows_sweeps, reps=5, warmup=1),
+                     plain_ms=median_ms(lambda: rows_sweeps(True), reps=1,
+                                        warmup=0),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"time sgm_sweep horizontal ({len(horiz)} directions of a config-5 "
+          f"tile of one frame {(1, ht, w, d)}): kernel "
+          f"{horiz_row['ms']:.4f} ms, plain {horiz_row['plain_ms']:.4f} ms, "
+          f"bound {b_ms:.4f} ms by {b_by} ({card_line})")
+    del c, c1, p2es, p2h, carries
+
+    wl, wr, gx0 = kitti_windows(p5, dev)[0]
+    s = window_s(wl, wr, gx0, p5)
+    args = (s, p5.s_invalid, p5.lr_max_diff, p5.subpixel, True, gx0,
+            KITTI[1])
+    wc = s.shape[-2]
+    nbytes = KITTI[0] * wc * (d * s.element_size() + 5 * 4)
+    b_ms, b_by = bound(nbytes, 6 * KITTI[0] * wc * d)
+    window_row = dict(shape=list(s.shape), gx0=gx0,
+                      ms=median_ms(lambda: extract.extract_stereo(*args)),
+                      plain_ms=median_ms(
+                          lambda: extract.extract_stereo_plain(*args)),
+                      bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"time extract_stereo on a KITTI window {tuple(s.shape)} (gx0 "
+          f"{gx0}): kernel {window_row['ms']:.4f} ms, plain "
+          f"{window_row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+          f"({card_line})")
+    print(f"tiled paths per frame: {json.dumps(e2e)} ({card_line})")
+    return dict(e2e=e2e, carry=carry_row, tile_horizontal=horiz_row,
+                window=window_row)
 
 
 def main() -> int:
@@ -659,10 +1109,6 @@ def main() -> int:
                      "4K")
     check_lr_options(params, dev)
     check_cli(params, dev)
-    for name, (_, _, _, paths) in SOURCES.items():
-        for path in paths:
-            require(launches[path].get(name, 0) > 0,
-                    f"{name} not launched on the {path} path")
 
     # 7. timings, each kernel on its main path's inputs
     cl = census_transform(tl, params.census_window)
@@ -831,6 +1277,21 @@ def main() -> int:
     print(f"batched path per frame, B=1 vs B={BATCH}: "
           f"{json.dumps(per_frame)} ({card_line})")
 
+    # 8. tiled stereo and flow: K2 with carry, K3 on windows, config 5,
+    #    KITTI tilings, the 4K flow leg, timings
+    del c, p2es, ext_args, lv, fc, fs, bl, br, bcl, bcr
+    torch.cuda.empty_cache()
+    errs = merge_errs(errs, check_tiled_kernels(params, dev))
+    launches["stereo_tiled"] = check_config5(dev)
+    check_kitti_tiled(params, dev)
+    launches["flow_tiled"] = check_uhd_flow(dev)
+    errs = merge_errs(errs, check_uhd_flow_tile(dev))
+    tiled_times = time_tiled(params, dev, card_line)
+    for name, (_, _, _, paths) in SOURCES.items():
+        for path in paths:
+            require(launches[path].get(name, 0) > 0,
+                    f"{name} not launched on the {path} path")
+
     rows = []
     for name, (lib, replaces, also, paths) in SOURCES.items():
         row = {"name": name, "route": "cuda",
@@ -845,6 +1306,10 @@ def main() -> int:
                                        for p in paths}
         if name == "sgm_sweep":  # the row's times: 1D labels, stereo frame
             row["label_2d"] = times["sgm_sweep_2d"]
+            row["carry"] = tiled_times["carry"]
+            row["tile_horizontal"] = tiled_times["tile_horizontal"]
+        if name == "extract_stereo":
+            row["window"] = tiled_times["window"]
         if name in btimes:  # the same kernel over the batched path's frames
             row["batch"] = btimes[name]
         rows.append(row)

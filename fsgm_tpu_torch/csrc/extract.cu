@@ -30,6 +30,16 @@
 // with_rwta the block skips the scatter, the validity pass and the shared
 // memory, and writes no validity plane.  The division is IEEE (no
 // fast-math), so dr matches the f32 host formula bit for bit.
+//
+// Windows (column tiling, fsgm_tpu_torch/parallel/tiled.py): S may span a
+// window whose column x sits at the global column gx0 + x of an image
+// w_global wide (gx0 < 0 or gx0 + W > w_global: columns outside the image).
+// A right-view match at x + d then also needs gx0 + x + d < w_global, so a
+// column past the global edge scatters nothing and rho starts at the first
+// d that leaves either edge; the LR lookup x - dr must lie at or right of
+// the global column 0 (x - dr >= -gx0), as the JAX rule d_R = -2^20 outside
+// the image gives.  gx0 = 0, w_global = W is the untiled frame.  All the
+// windows of one launch share gx0.
 
 #include <climits>
 #include <cstdint>
@@ -58,7 +68,8 @@ __global__ void __launch_bounds__(kThreads)
 extract_kernel(const ST* __restrict__ s, int* __restrict__ d_out,
                int* __restrict__ sm_out, int* __restrict__ s0_out,
                int* __restrict__ sp_out, int* __restrict__ valid_out, int w,
-               int s_invalid, int max_diff, int with_sub, int with_rwta) {
+               int s_invalid, int max_diff, int with_sub, int with_rwta,
+               int gx0, int w_global) {
   constexpr int ND = 32 * K;
   extern __shared__ int smem[];
   int* rho = smem;       // packed (S << 8) | d right-view minimum, per x
@@ -66,9 +77,12 @@ extract_kernel(const ST* __restrict__ s, int* __restrict__ d_out,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
+  // the first window column at or past the global right edge
+  const int x_end = min(w, w_global - gx0);
+  const int x_lo = max(0, -gx0);  // the first column inside the image
   if (with_rwta) {
     for (int x = threadIdx.x; x < w; x += blockDim.x) {
-      const int first_out = w - x;  // smallest d with x + d >= W
+      const int first_out = max(x_end - x, 0);  // smallest invalid d
       rho[x] = first_out < ND ? ((s_invalid << 8) | first_out) : INT_MAX;
     }
     __syncthreads();
@@ -85,7 +99,7 @@ extract_kernel(const ST* __restrict__ s, int* __restrict__ d_out,
       const int d = lane * K + k;
       const int key = (v[k] << 8) | d;
       pk = min(pk, key);
-      if (with_rwta && x >= d) atomicMin(&rho[x - d], key);
+      if (with_rwta && x >= d && x < x_end) atomicMin(&rho[x - d], key);
     }
     pk = __reduce_min_sync(kFull, pk);
     const int dstar = pk & 255;
@@ -113,7 +127,7 @@ extract_kernel(const ST* __restrict__ s, int* __restrict__ d_out,
   for (int x = threadIdx.x; x < w; x += blockDim.x) {
     const int dr = dr_sh[x];
     int ok = 0;
-    if (dr >= 0 && dr < ND && x >= dr) {
+    if (dr >= 0 && dr < ND && x - dr >= x_lo) {
       const int diff = dr - (rho[x - dr] & 255);
       ok = (diff < 0 ? -diff : diff) <= max_diff;
     }
@@ -124,7 +138,7 @@ extract_kernel(const ST* __restrict__ s, int* __restrict__ d_out,
 template <int K, typename ST>
 int launch(const void* s, void* d, void* sm, void* s0, void* sp, void* valid,
            long long rows, int w, int s_invalid, int max_diff, int with_sub,
-           int with_rwta, cudaStream_t st) {
+           int with_rwta, int gx0, int w_global, cudaStream_t st) {
   if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const size_t shmem = with_rwta ? 2 * sizeof(int) * (size_t)w : 0;
   auto kernel = extract_kernel<K, ST>;
@@ -135,19 +149,20 @@ int launch(const void* s, void* d, void* sm, void* s0, void* sp, void* valid,
   }
   kernel<<<(unsigned)rows, kThreads, shmem, st>>>(
       (const ST*)s, (int*)d, (int*)sm, (int*)s0, (int*)sp, (int*)valid, w,
-      s_invalid, max_diff, with_sub, with_rwta);
+      s_invalid, max_diff, with_sub, with_rwta, gx0, w_global);
   return (int)cudaGetLastError();
 }
 
 template <typename ST>
 int dispatch(int k, const void* s, void* d, void* sm, void* s0, void* sp,
              void* valid, long long rows, int w, int s_invalid, int max_diff,
-             int with_sub, int with_rwta, cudaStream_t st) {
+             int with_sub, int with_rwta, int gx0, int w_global,
+             cudaStream_t st) {
   switch (k) {
 #define FSGM_CASE(KK)                                                     \
   case KK:                                                                \
     return launch<KK, ST>(s, d, sm, s0, sp, valid, rows, w, s_invalid,   \
-                          max_diff, with_sub, with_rwta, st);
+                          max_diff, with_sub, with_rwta, gx0, w_global, st);
     FSGM_CASE(1) FSGM_CASE(2) FSGM_CASE(3) FSGM_CASE(4)
     FSGM_CASE(5) FSGM_CASE(6) FSGM_CASE(7) FSGM_CASE(8)
 #undef FSGM_CASE
@@ -158,19 +173,20 @@ int dispatch(int k, const void* s, void* d, void* sm, void* s0, void* sp,
 }  // namespace
 
 // s (B, H, W, D) int16 (s_int32 = 0) or int32, D a multiple of 32 up to
-// 256; five (B, H, W) int32 outputs (valid written only with with_rwta).
+// 256; five (B, H, W) int32 outputs (valid written only with with_rwta);
+// column x of S at the global column gx0 + x of an image w_global wide.
 extern "C" int fsgm_extract_stereo(const void* s, int s_int32, void* d,
                                    void* sm, void* s0, void* sp, void* valid,
                                    int b, int h, int w, int nd, int s_invalid,
                                    int max_diff, int with_sub, int with_rwta,
-                                   void* stream) {
+                                   int gx0, int w_global, void* stream) {
   if (nd % 32 != 0) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)b * h;
   cudaStream_t st = (cudaStream_t)stream;
   return s_int32 ? dispatch<int32_t>(nd / 32, s, d, sm, s0, sp, valid, rows, w,
                                      s_invalid, max_diff, with_sub, with_rwta,
-                                     st)
+                                     gx0, w_global, st)
                  : dispatch<int16_t>(nd / 32, s, d, sm, s0, sp, valid, rows, w,
                                      s_invalid, max_diff, with_sub, with_rwta,
-                                     st);
+                                     gx0, w_global, st);
 }

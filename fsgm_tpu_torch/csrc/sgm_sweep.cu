@@ -43,6 +43,21 @@
 // got this from neutral zero pad lanes between folded frames).  B frames
 // give B times the lines: 16 KITTI frames give the horizontal directions
 // 6,000 lines instead of 375.
+//
+// Carry (tiled execution; also replaces the first-generation TPU sweeps
+// fsgm_tpu/ops/pallas/aggregate_pallas.py::_row_sweep, whose carry crossed
+// tile seams, and ::_col_sweep).  For dy != 0, carry_in and carry_out are
+// nullable (B, 2, W, D) int32 tensors in the canonical scan frame, row 0
+// the most recent row (fsgm_tpu/ops/aggregate.py::aggregate_one_path's
+// carry).  A line that starts at scan row i < |dy| whose predecessor
+// column x - dx is inside the image loads carry_in[b, |dy|-1-i, x-dx] as
+// its previous L (INF in the label slots past nl) and takes the normal
+// recurrence at its first pixel instead of L = C; knights (|dy| = 2) read
+// carry row 1 at scan row 0 and row 0 at scan row 1.  A walk in the last
+// two scan rows stores its L (0 past nl) into carry_out row h-1-scan_row,
+// so each carry entry is written once, by the line through that pixel.
+// This is a few loads at a line's start and a few stores at its end: the
+// walk itself is unchanged.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -73,8 +88,9 @@ __device__ __forceinline__ void load_step(const uint8_t* __restrict__ cost,
 template <int K, typename ST, bool FRESH, bool LABEL2D>
 __global__ void __launch_bounds__(kThreads)
 sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
-                 ST* __restrict__ s, int h, int w, int nl, int ext, int dy,
-                 int dx, int p1, int n_row_starts, int rows_rem,
+                 ST* __restrict__ s, const int* __restrict__ carry_in,
+                 int* __restrict__ carry_out, int h, int w, int nl, int ext,
+                 int dy, int dx, int p1, int n_row_starts, int rows_rem,
                  int per_frame, long long n_lines) {
   constexpr int ND = 32 * K;
   // LABEL2D: each warp's previous L row, read by label index
@@ -89,10 +105,11 @@ sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
   const long long base = frame * h * w;
   int* row = prev_row[LABEL2D ? (threadIdx.x >> 5) : 0];
   int y, x;
+  int start_row = -1;  // the scan row i < |dy| where the line starts, if so
   if (line < n_row_starts) {
-    const int i = line / w;
+    start_row = line / w;
     x = line % w;
-    y = dy > 0 ? i : h - 1 - i;
+    y = dy > 0 ? start_row : h - 1 - start_row;
   } else {
     const int g = line - n_row_starts;
     const int j = g / rows_rem;
@@ -119,6 +136,15 @@ sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
   int p2v;
   load_step<K, ST, FRESH>(cost, p2e, s, pix, d0, c, sv, p2v);
   bool first = true;
+  const int ady = dy < 0 ? -dy : dy;
+  if (carry_in != nullptr && start_row >= 0 && x - dx >= 0 && x - dx < w) {
+    // continue the scan from the previous tile: its L is this line's prev
+    const int* cp = carry_in +
+        ((frame * 2 + (ady - 1 - start_row)) * w + (x - dx)) * ND + d0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) prev[k] = real[k] ? cp[k] : kInf;
+    first = false;
+  }
   while (true) {
     const int ny = y + dy, nx = x + dx;
     const bool more = ny >= 0 && ny < h && nx >= 0 && nx < w;
@@ -178,6 +204,12 @@ sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
       sp[k] = (ST)(FRESH ? add : sv[k] + add);
       prev[k] = l[k];
     }
+    const int back = dy > 0 ? h - 1 - y : y;  // scan rows left after this
+    if (carry_out != nullptr && back <= 1) {
+      int* co = carry_out + ((frame * 2 + back) * w + x) * ND + d0;
+#pragma unroll
+      for (int k = 0; k < K; ++k) co[k] = real[k] ? l[k] : 0;
+    }
     if (!more) break;
     first = false;
     y = ny;
@@ -193,8 +225,9 @@ sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
 }
 
 template <int K, typename ST, bool FRESH, bool LABEL2D>
-int launch(const void* cost, const void* p2e, void* s, int b, int h, int w,
-           int nl, int ext, int dy, int dx, int p1, cudaStream_t stream) {
+int launch(const void* cost, const void* p2e, void* s, const void* cin,
+           void* cout, int b, int h, int w, int nl, int ext, int dy, int dx,
+           int p1, cudaStream_t stream) {
   const int ady = dy < 0 ? -dy : dy, adx = dx < 0 ? -dx : dx;
   const int row_band = ady < h ? ady : h;
   const int n_row_starts = row_band * w;
@@ -205,19 +238,21 @@ int launch(const void* cost, const void* p2e, void* s, int b, int h, int w,
   const long long blocks = (n_lines + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   sgm_sweep_kernel<K, ST, FRESH, LABEL2D><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (const uint8_t*)cost, (const int*)p2e, (ST*)s, h, w, nl, ext, dy, dx, p1,
-      n_row_starts, rows_rem, per_frame, n_lines);
+      (const uint8_t*)cost, (const int*)p2e, (ST*)s, (const int*)cin,
+      (int*)cout, h, w, nl, ext, dy, dx, p1, n_row_starts, rows_rem, per_frame,
+      n_lines);
   return (int)cudaGetLastError();
 }
 
 template <typename ST, bool FRESH, bool LABEL2D>
-int dispatch(int k, const void* cost, const void* p2e, void* s, int b, int h,
-             int w, int nl, int ext, int dy, int dx, int p1, cudaStream_t st) {
+int dispatch(int k, const void* cost, const void* p2e, void* s, const void* cin,
+             void* cout, int b, int h, int w, int nl, int ext, int dy, int dx,
+             int p1, cudaStream_t st) {
   switch (k) {
-#define FSGM_CASE(KK)                                                          \
-  case KK:                                                                     \
-    return launch<KK, ST, FRESH, LABEL2D>(cost, p2e, s, b, h, w, nl, ext, dy, \
-                                          dx, p1, st);
+#define FSGM_CASE(KK)                                                         \
+  case KK:                                                                    \
+    return launch<KK, ST, FRESH, LABEL2D>(cost, p2e, s, cin, cout, b, h, w,  \
+                                          nl, ext, dy, dx, p1, st);
     FSGM_CASE(1) FSGM_CASE(2) FSGM_CASE(3) FSGM_CASE(4)
     FSGM_CASE(5) FSGM_CASE(6) FSGM_CASE(7) FSGM_CASE(8)
 #undef FSGM_CASE
@@ -227,14 +262,15 @@ int dispatch(int k, const void* cost, const void* p2e, void* s, int b, int h,
 
 template <typename ST>
 int dispatch_mode(int fresh, int label2d, int k, const void* cost,
-                  const void* p2e, void* s, int b, int h, int w, int nl,
-                  int ext, int dy, int dx, int p1, cudaStream_t st) {
+                  const void* p2e, void* s, const void* cin, void* cout, int b,
+                  int h, int w, int nl, int ext, int dy, int dx, int p1,
+                  cudaStream_t st) {
   if (label2d) {
-    return fresh ? dispatch<ST, true, true>(k, cost, p2e, s, b, h, w, nl, ext, dy, dx, p1, st)
-                 : dispatch<ST, false, true>(k, cost, p2e, s, b, h, w, nl, ext, dy, dx, p1, st);
+    return fresh ? dispatch<ST, true, true>(k, cost, p2e, s, cin, cout, b, h, w, nl, ext, dy, dx, p1, st)
+                 : dispatch<ST, false, true>(k, cost, p2e, s, cin, cout, b, h, w, nl, ext, dy, dx, p1, st);
   }
-  return fresh ? dispatch<ST, true, false>(k, cost, p2e, s, b, h, w, nl, ext, dy, dx, p1, st)
-               : dispatch<ST, false, false>(k, cost, p2e, s, b, h, w, nl, ext, dy, dx, p1, st);
+  return fresh ? dispatch<ST, true, false>(k, cost, p2e, s, cin, cout, b, h, w, nl, ext, dy, dx, p1, st)
+               : dispatch<ST, false, false>(k, cost, p2e, s, cin, cout, b, h, w, nl, ext, dy, dx, p1, st);
 }
 
 }  // namespace
@@ -242,19 +278,26 @@ int dispatch_mode(int fresh, int label2d, int k, const void* cost,
 // cost (B, H, W, D) u8, p2e (B, H, W) int32 P2' of this direction, s
 // (B, H, W, D) int16 (s_int32 = 0) or int32; D a multiple of 32 up to 256,
 // of which the first nl slots are labels.  label_ext = 0: 1D labels;
-// e >= 1: the e x e label grid (nl = e * e).  One launch covers the B
-// frames: B times each frame's lines.
+// e >= 1: the e x e label grid (nl = e * e).  carry_in, carry_out: null, or
+// (B, 2, W, D) int32 for dy != 0 (carry_out written in full when H >= 2;
+// with H = 1 the caller fills its row 1).  One launch covers the B frames:
+// B times each frame's lines.
 extern "C" int fsgm_sgm_sweep(const void* cost, const void* p2e, void* s,
+                              const void* carry_in, void* carry_out,
                               int s_int32, int fresh, int b, int h, int w,
                               int nd, int nl, int label_ext, int dy, int dx,
                               int p1, void* stream) {
   if (nd % 32 != 0 || nl < 1 || nl > nd || label_ext < 0)
     return (int)cudaErrorInvalidValue;
+  if (dy == 0 && (carry_in != nullptr || carry_out != nullptr))
+    return (int)cudaErrorInvalidValue;
   const int k = nd / 32;
   const int label2d = label_ext > 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return s_int32 ? dispatch_mode<int32_t>(fresh, label2d, k, cost, p2e, s, b, h,
-                                          w, nl, label_ext, dy, dx, p1, st)
-                 : dispatch_mode<int16_t>(fresh, label2d, k, cost, p2e, s, b, h,
-                                          w, nl, label_ext, dy, dx, p1, st);
+  return s_int32 ? dispatch_mode<int32_t>(fresh, label2d, k, cost, p2e, s,
+                                          carry_in, carry_out, b, h, w, nl,
+                                          label_ext, dy, dx, p1, st)
+                 : dispatch_mode<int16_t>(fresh, label2d, k, cost, p2e, s,
+                                          carry_in, carry_out, b, h, w, nl,
+                                          label_ext, dy, dx, p1, st);
 }

@@ -105,19 +105,21 @@ def _parabola(idx, v_m, v_0, v_p, size: int) -> torch.Tensor:
 
 
 def fb_check(flow_fwd: torch.Tensor, flow_bwd: torch.Tensor,
-             max_diff: float) -> torch.Tensor:
+             max_diff: float, y0: int = 0) -> torch.Tensor:
     """(H, W) bool: |F(p) + B(p + round(F(p)))| <= max_diff, the lookup
     inside the image (round half to even).  An explicit validity plane:
-    no flow value is overwritten."""
+    no flow value is overwritten.  A row tile (parallel/tiled_flow.py)
+    passes its first global row y0 and the whole backward field."""
     h, w = flow_fwd.shape[:2]
+    hg = flow_bwd.shape[0]
     dev = flow_fwd.device
-    yy = torch.arange(h, device=dev, dtype=torch.int32)[:, None]
+    yy = torch.arange(h, device=dev, dtype=torch.int32)[:, None] + y0
     xx = torch.arange(w, device=dev, dtype=torch.int32)[None, :]
     tx = xx + torch.round(flow_fwd[..., 0]).to(torch.int32)
     ty = yy + torch.round(flow_fwd[..., 1]).to(torch.int32)
-    inb = (tx >= 0) & (tx < w) & (ty >= 0) & (ty < h)
-    src = ty.clamp(0, h - 1).to(torch.int64) * w + tx.clamp(0, w - 1)
-    b = flow_bwd.reshape(h * w, 2)[src]
+    inb = (tx >= 0) & (tx < w) & (ty >= 0) & (ty < hg)
+    src = ty.clamp(0, hg - 1).to(torch.int64) * w + tx.clamp(0, w - 1)
+    b = flow_bwd.reshape(hg * w, 2)[src]
     err = torch.sqrt((flow_fwd[..., 0] + b[..., 0]) ** 2
                      + (flow_fwd[..., 1] + b[..., 1]) ** 2)
     return inb & (err <= max_diff)

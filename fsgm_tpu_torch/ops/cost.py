@@ -1,13 +1,20 @@
 """Flow cost volumes in plain PyTorch (the JAX package builds them in XLA).
 
 Counterpart of fsgm_tpu/ops/cost.py::_flow_cost_planes, cost_volume_flow
-and cost_volume_flow_major, untiled.  Over the (2w+1)^2 label window
-centred on the rounded prior flow, label l = (dv+w)*(2w+1) + (du+w):
+and cost_volume_flow_major.  Over the (2w+1)^2 label window centred on the
+rounded prior flow, label l = (dv+w)*(2w+1) + (du+w):
 
     cen2w[y, x]  = cen2[y + base_v, x + base_u]    (warp once, per pixel)
     C[y, x, l]   = popcount(cen1[y, x] ^ cen2w[y + dv, x + du]),
                    invalid_cost where (y + dv, x + du) or its warp source
                    lies outside the image.
+
+Tiled mode of cost_volume_flow_major (fsgm_tpu_torch/parallel/
+tiled_flow.py): cen1 is a row tile whose first row is the global row
+y_offset, cen2 the full second image, and base_u / base_v arrive extended
+by ``radius`` true halo rows on each side (the dv shifts read warped
+descriptors across the tile's seams); rows outside the second image are
+invalid.  Untiled calls pass unextended bases and y_offset 0.
 
 Vectorised over labels: one gather warps the descriptors, a zero / False
 border of w pixels makes every window position addressable, and one
@@ -26,22 +33,34 @@ from fsgm_tpu_torch.ops.census import hamming
 
 
 def _warped_windows(cen1: torch.Tensor, cen2: torch.Tensor,
-                    base_u: torch.Tensor, base_v: torch.Tensor, radius: int):
+                    base_u: torch.Tensor, base_v: torch.Tensor, radius: int,
+                    y_offset: int = 0):
     """Views (H, W, e, e) of the warped descriptors and their validity at
     window position [y, x, dv + w, du + w] (e = 2w + 1)."""
     h, w = cen1.shape
+    h2 = cen2.shape[0]
+    hb = base_u.shape[0]             # h (untiled) or h + 2 radius (tiled)
+    halo = (hb - h) // 2
+    if hb != h + 2 * halo or halo not in (0, radius) \
+            or cen2.shape[1] != w:
+        raise ValueError(f"flow cost: base rows {hb} for a {h}-row tile "
+                         f"with radius {radius}, second image "
+                         f"{tuple(cen2.shape)}")
     dev = cen1.device
-    yy = torch.arange(h, device=dev, dtype=torch.int32)[:, None]
+    yy = (torch.arange(hb, device=dev, dtype=torch.int32)[:, None]
+          - halo + y_offset)         # the base rows' global rows
     xx = torch.arange(w, device=dev, dtype=torch.int32)[None, :]
     sy = yy + base_v
     sx = xx + base_u
-    ok_w = (sy >= 0) & (sy < h) & (sx >= 0) & (sx < w)
-    src = sy.clamp(0, h - 1).to(torch.int64) * w + sx.clamp(0, w - 1)
+    ok_w = (sy >= 0) & (sy < h2) & (sx >= 0) & (sx < w) & (yy >= 0) \
+        & (yy < h2)
+    src = sy.clamp(0, h2 - 1).to(torch.int64) * w + sx.clamp(0, w - 1)
     r, e = radius, 2 * radius + 1
+    pad = r - halo
     cen2w = torch.zeros((h + 2 * r, w + 2 * r), dtype=cen2.dtype, device=dev)
     ok = torch.zeros((h + 2 * r, w + 2 * r), dtype=torch.bool, device=dev)
-    cen2w[r:r + h, r:r + w] = cen2.reshape(-1)[src]
-    ok[r:r + h, r:r + w] = ok_w
+    cen2w[pad:pad + hb, r:r + w] = cen2.reshape(-1)[src]
+    ok[pad:pad + hb, r:r + w] = ok_w
     return (cen2w.unfold(0, e, 1).unfold(1, e, 1),
             ok.unfold(0, e, 1).unfold(1, e, 1))
 
@@ -67,7 +86,8 @@ def cost_volume_flow(cen1: torch.Tensor, cen2: torch.Tensor,
 def cost_volume_flow_major(cen1: torch.Tensor, cen2: torch.Tensor,
                            base_u: torch.Tensor, base_v: torch.Tensor,
                            radius: int, invalid_cost: int = 255,
-                           nl_pad: int | None = None) -> torch.Tensor:
+                           nl_pad: int | None = None,
+                           y_offset: int = 0) -> torch.Tensor:
     """(H, nl_pad, W) uint8 label-major flow cost volume: label l's plane
     at [:, l, :], contiguous along W; planes past (2w+1)^2 up to nl_pad
     hold invalid_cost.  Same values as cost_volume_flow."""
@@ -76,7 +96,7 @@ def cost_volume_flow_major(cen1: torch.Tensor, cen2: torch.Tensor,
     nl_pad = nl if nl_pad is None else nl_pad
     if nl_pad < nl:
         raise ValueError(f"nl_pad {nl_pad} < {nl} labels")
-    win, ok = _warped_windows(cen1, cen2, base_u, base_v, radius)
+    win, ok = _warped_windows(cen1, cen2, base_u, base_v, radius, y_offset)
     out = torch.full((h, nl_pad, w), invalid_cost, dtype=torch.uint8,
                      device=cen1.device)
     out[:, :nl] = _cost(cen1[:, None, :],

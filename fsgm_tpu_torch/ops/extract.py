@@ -46,16 +46,22 @@ def neighborhood_of_min(s: torch.Tensor, d_int: torch.Tensor):
     return pick(d - 1), pick(d), pick(d + 1)
 
 
-def wta_right_from_s(s: torch.Tensor, s_invalid: int) -> torch.Tensor:
+def wta_right_from_s(s: torch.Tensor, s_invalid: int, gx0: int = 0,
+                     w_global: int | None = None) -> torch.Tensor:
     """Right-view disparity by the S-volume trick: argmin_d S(y, x+d, d),
     s_invalid where x+d >= W, smallest d on ties.  One index-arithmetic
-    gather of the diagonal within each row."""
+    gather of the diagonal within each row.  Column tiling: S spans a
+    window whose column x sits at the global column gx0 + x of an image
+    w_global wide, and a match also needs gx0 + x + d < w_global."""
     w, nd = s.shape[-2:]
     lab = torch.arange(nd, device=s.device)
     src = torch.arange(w, device=s.device)[:, None] + lab[None, :]  # (W, D)
+    valid = src < w
+    if w_global is not None:
+        valid &= gx0 + src < w_global
     flat = (src.clamp(max=w - 1) * nd + lab).reshape(-1)
     diag = s.reshape(s.shape[:-2] + (w * nd,))[..., flat].reshape(s.shape)
-    diag = torch.where(src < w, diag.to(torch.int32), s_invalid)
+    diag = torch.where(valid, diag.to(torch.int32), s_invalid)
     return wta(diag)
 
 
@@ -71,25 +77,29 @@ def subpixel_from_neighborhood(d_int, s_m, s_0, s_p, nd: int
 
 
 def lr_valid(d_left: torch.Tensor, d_right: torch.Tensor,
-             max_diff: int = 1, max_disp: int | None = None) -> torch.Tensor:
-    """Bool plane: 0 <= dr < max_disp (default W), x >= dr and |dr -
+             max_diff: int = 1, max_disp: int | None = None,
+             x_lo: int = 0) -> torch.Tensor:
+    """Bool plane: 0 <= dr < max_disp (default W), x - dr >= x_lo and |dr -
     d_R(x - dr)| <= max_diff, dr = rint(d_L(x)) (half to even); the lookup
     stays in the pixel's own row.  fsgm_tpu/ops/extract.py::lr_check's
-    rule: a rounded disparity outside [0, max_disp) fails."""
+    rule: a rounded disparity outside [0, max_disp) fails.  x_lo > 0 is a
+    window's first column inside the image (column tiling): a lookup left
+    of it fails, as the JAX tiled path's d_R = -2^20 there makes it."""
     w = d_left.shape[-1]
     d_round = torch.round(d_left).to(torch.int64)
     src = torch.arange(w, device=d_left.device) - d_round
     inside = (d_round >= 0) & (d_round < (w if max_disp is None
-                                          else max_disp)) & (src >= 0)
+                                          else max_disp)) & (src >= x_lo)
     d_r = torch.gather(d_right.to(torch.int64), -1, src.clamp(0, w - 1))
     return inside & ((d_round - d_r).abs() <= max_diff)
 
 
 def lr_check(d_left: torch.Tensor, d_right: torch.Tensor,
-             max_diff: int = 1, max_disp: int | None = None) -> torch.Tensor:
+             max_diff: int = 1, max_disp: int | None = None,
+             x_lo: int = 0) -> torch.Tensor:
     """d_left with INVALID where the left-right check against the given
     right-view disparity d_right fails (lr_valid)."""
-    return torch.where(lr_valid(d_left, d_right, max_diff, max_disp),
+    return torch.where(lr_valid(d_left, d_right, max_diff, max_disp, x_lo),
                        d_left, INVALID)
 
 

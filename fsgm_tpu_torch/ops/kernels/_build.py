@@ -42,8 +42,9 @@ _I = ctypes.c_int
 # C signature of each library's entry point: (symbol, argtypes)
 ENTRY = {
     "cost": ("fsgm_census_cost", [_P, _P, _P] + [_I] * 6 + [_P]),
-    "sgm_sweep": ("fsgm_sgm_sweep", [_P, _P, _P] + [_I] * 11 + [_P]),
-    "extract": ("fsgm_extract_stereo", [_P, _I] + [_P] * 5 + [_I] * 8 + [_P]),
+    "sgm_sweep": ("fsgm_sgm_sweep", [_P] * 5 + [_I] * 11 + [_P]),
+    "extract": ("fsgm_extract_stereo",
+                [_P, _I] + [_P] * 5 + [_I] * 10 + [_P]),
     "extract_flow": ("fsgm_extract_flow",
                      [_P, _I] + [_P] * 7 + [_I] * 6 + [_P]),
     "transpose": ("fsgm_label_minor_from_major",

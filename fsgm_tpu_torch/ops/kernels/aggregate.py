@@ -20,9 +20,24 @@ counterpart: the CUDA kernel (csrc/sgm_sweep.cu) walks each path line of
 one direction with one warp, for all B frames in one launch.  Every
 function here takes (H, W, ...) as B = 1.
 
+Carry (tiled execution, fsgm_tpu_torch/parallel): a vertical direction
+(dy != 0) can start from and export the scan state of fsgm_tpu/ops/
+aggregate.py::aggregate_one_path, one (B, 2, W, D) int32 tensor per
+direction in the canonical scan frame (row 0 the most recent row): carry-out
+row 0 is L at the last row of the scan (y = H-1 for dy > 0, y = 0 for
+dy < 0) and row 1 the row before it (carry-in row 0 when H = 1).  A line
+that starts at scan row i < |dy| with its predecessor column x - dx inside
+the image takes carry_in[|dy|-1-i, x-dx] as its previous L and runs the
+normal recurrence; an all-zero carry gives L = C, the start of the image.
+Label slots past nl are read as INF and written as 0.  This also replaces
+the first-generation sweeps fsgm_tpu/ops/pallas/aggregate_pallas.py::
+_row_sweep (vertical family with carries) and ::_col_sweep (horizontal)
+that the tiled path of the JAX package runs.
+
 Also here, from fsgm_tpu/ops/pallas/aggregate_pallas.py: ``p2_effective``
-(the P2' table, adaptive or not) and ``plan_dtypes`` (int16 S where the
-preset's bound allows it; the kernel computes in int32 either way).
+(the P2' table, adaptive or not, with the two image rows beyond a tile's
+seam) and ``plan_dtypes`` (int16 S where the preset's bound allows it; the
+kernel computes in int32 either way).
 """
 
 from __future__ import annotations
@@ -43,20 +58,32 @@ def plan_dtypes(s_max: int | None) -> torch.dtype:
 
 
 def p2_effective(img: torch.Tensor, direction: Tuple[int, int], p1: int,
-                 p2: int, adaptive: bool) -> torch.Tensor:
+                 p2: int, adaptive: bool, above2: torch.Tensor | None = None,
+                 below2: torch.Tensor | None = None) -> torch.Tensor:
     """(..., H, W) int32 P2' for direction r: max(P1+1, P2 // max(1, |I(p) -
-    I(p - r)|)) when adaptive, else P2.  Where p - r is outside the image
-    the value is never read (L = C there), so the edge is clamped, at each
-    frame's own edge."""
+    I(p - r)|)) when adaptive, else P2.  above2 / below2 (..., 2, W) are the
+    image rows [-2, -1] and [H, H+1] beyond a tile's seams (image order):
+    the predecessors of the first |dy| scan rows of a down (dy > 0) or up
+    (dy < 0) direction that continues from a carry.  Without them, and
+    wherever p - r is outside the image (L = C there, P2' never read), the
+    edge is clamped, at each frame's own edge."""
     h, w = img.shape[-2:]
     if not adaptive:
         return torch.full(img.shape, p2, dtype=torch.int32,
                           device=img.device)
     dy, dx = direction
     cur = img.to(torch.int32)
-    ys = (torch.arange(h, device=img.device) - dy).clamp_(0, h - 1)
+    rows = torch.arange(h, device=img.device)
+    if dy > 0 and above2 is not None:
+        src = torch.cat([above2.to(torch.int32), cur], dim=-2)
+        ys = rows + 2 - dy
+    elif dy < 0 and below2 is not None:
+        src = torch.cat([cur, below2.to(torch.int32)], dim=-2)
+        ys = rows - dy
+    else:
+        src, ys = cur, (rows - dy).clamp_(0, h - 1)
     xs = (torch.arange(w, device=img.device) - dx).clamp_(0, w - 1)
-    pred = cur.index_select(-2, ys).index_select(-1, xs)
+    pred = src.index_select(-2, ys).index_select(-1, xs)
     diff = (cur - pred).abs().clamp_(min=1)
     return (p2 // diff).clamp_(min=p1 + 1).to(torch.int32)
 
@@ -103,16 +130,35 @@ def _labels(nd: int, label_ext: int | None, nl: int | None) -> int:
     return nl
 
 
+def _check_carry(cost: torch.Tensor, direction: Tuple[int, int],
+                 init_carry: torch.Tensor | None, return_carry: bool) -> None:
+    if direction[0] == 0 and (init_carry is not None or return_carry):
+        raise ValueError(f"a carry needs a vertical direction, got "
+                         f"{direction}")
+    if init_carry is None:
+        return
+    want = tuple(cost.shape[:-3]) + (2,) + tuple(cost.shape[-2:])
+    if init_carry.dtype != torch.int32 or tuple(init_carry.shape) != want:
+        raise TypeError(f"carry must be {want} int32, got "
+                        f"{tuple(init_carry.shape)} {init_carry.dtype}")
+    if init_carry.device != cost.device:
+        raise ValueError("carry and cost lie on different devices")
+
+
 def sgm_sweep_plain(cost: torch.Tensor, p2e: torch.Tensor,
                     direction: Tuple[int, int], p1: int,
                     label_ext: int | None = None,
-                    nl: int | None = None) -> torch.Tensor:
+                    nl: int | None = None,
+                    init_carry: torch.Tensor | None = None,
+                    return_carry: bool = False):
     """Plain PyTorch version: L_r as (..., H, W, D) int32, 0 in the slots
-    past nl.  A Python loop over the scan axis, vectorised over frames x
-    lines x labels."""
+    past nl, and with return_carry also the carry out (module docstring).
+    A Python loop over the scan axis, vectorised over frames x lines x
+    labels."""
     dy, dx = direction
     h, w, nd = cost.shape[-3:]
     nl = _labels(nd, label_ext, nl)
+    _check_carry(cost, direction, init_carry, return_carry)
     c = cost[..., :nl].to(torch.int32)
     out = torch.zeros(cost.shape, dtype=torch.int32, device=cost.device)
     if dy == 0:
@@ -126,13 +172,16 @@ def sgm_sweep_plain(cost: torch.Tensor, p2e: torch.Tensor,
                     out[..., x - dx, :nl], c[..., x, :], every, p1,
                     p2e[..., x], label_ext)
         return out
-    ys = range(h) if dy > 0 else range(h - 1, -1, -1)
+    ys = list(range(h) if dy > 0 else range(h - 1, -1, -1))
     for i, y in enumerate(ys):
-        if i < abs(dy):
+        if i >= abs(dy):
+            row = out[..., y - dy, :, :nl]
+        elif init_carry is not None:
+            row = init_carry[..., abs(dy) - 1 - i, :, :nl]
+        else:
             out[..., y, :, :nl] = c[..., y, :, :]
             continue
         # the predecessor row shifted by dx, INF where x - dx is outside
-        row = out[..., y - dy, :, :nl]
         prev = torch.full_like(row, INF)
         valid = torch.zeros(w, dtype=torch.bool, device=cost.device)
         inside = slice(dx, None) if dx >= 0 else slice(None, dx)
@@ -141,7 +190,35 @@ def sgm_sweep_plain(cost: torch.Tensor, p2e: torch.Tensor,
         valid[inside] = True
         out[..., y, :, :nl] = _recurrence(prev, c[..., y, :, :], valid, p1,
                                           p2e[..., y, :], label_ext)
-    return out
+    if not return_carry:
+        return out
+    carry = torch.zeros(cost.shape[:-3] + (2, w, nd), dtype=torch.int32,
+                        device=cost.device)
+    carry[..., 0, :, :] = out[..., ys[-1], :, :]
+    if h > 1:
+        carry[..., 1, :, :] = out[..., ys[-2], :, :]
+    elif init_carry is not None:
+        carry[..., 1, :, :nl] = init_carry[..., 0, :, :nl]
+    return out, carry
+
+
+def sgm_sweep_plain_into(cost: torch.Tensor, p2e: torch.Tensor,
+                         direction: Tuple[int, int], p1: int,
+                         s: torch.Tensor | None = None,
+                         s_dtype: torch.dtype = torch.int16,
+                         label_ext: int | None = None,
+                         nl: int | None = None,
+                         init_carry: torch.Tensor | None = None,
+                         return_carry: bool = False):
+    """sgm_sweep's contract (S += L_r, or a fresh S) through
+    sgm_sweep_plain, on any device: what sgm_sweep does for CPU tensors,
+    and what the tiled path's plain twin calls on the card."""
+    got = sgm_sweep_plain(cost, p2e, direction, p1, label_ext, nl,
+                          init_carry, return_carry)
+    l_r, carry = got if return_carry else (got, None)
+    l_r = l_r.to(s.dtype if s is not None else s_dtype)
+    s = l_r if s is None else s.add_(l_r)
+    return (s, carry) if return_carry else s
 
 
 def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
@@ -149,14 +226,19 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
               s: torch.Tensor | None = None,
               s_dtype: torch.dtype = torch.int16,
               label_ext: int | None = None,
-              nl: int | None = None) -> torch.Tensor:
+              nl: int | None = None,
+              init_carry: torch.Tensor | None = None,
+              return_carry: bool = False):
     """Aggregate one direction: S += L_r in place and return S, or, with
-    s None, return a fresh S = L_r in s_dtype.
+    s None, return a fresh S = L_r in s_dtype; with return_carry, return
+    (S, carry out).
 
     cost (H, W, D) or (B, H, W, D) u8 whose first nl (default D) slots are
     labels; p2e (H, W) or (B, H, W) int32 from p2_effective; |dy|, |dx| <=
     2; label_ext e: the labels form an (e x e) grid (flow), None: a line
-    (stereo).  One kernel launch covers all B frames."""
+    (stereo); init_carry (B, 2, W, D) (or (2, W, D)) int32 for dy != 0
+    (module docstring).  One kernel launch covers all B frames, each with
+    its own carry slice."""
     dy, dx = direction
     if (dy, dx) == (0, 0) or abs(dy) > 2 or abs(dx) > 2:
         raise ValueError(f"unsupported direction {direction}")
@@ -165,6 +247,7 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
                         "cost volume")
     h, w, nd = cost.shape[-3:]
     nl = _labels(nd, label_ext, nl)
+    _check_carry(cost, direction, init_carry, return_carry)
     if p2e.dtype != torch.int32 or p2e.shape != cost.shape[:-1]:
         raise TypeError(f"sgm_sweep takes a {tuple(cost.shape[:-1])} int32 "
                         f"P2' table, got {tuple(p2e.shape)} {p2e.dtype}")
@@ -179,30 +262,40 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
     if any(t.device != cost.device for t in tensors):
         raise ValueError("sgm_sweep inputs lie on different devices")
     if cost.device.type == "cpu":
-        l_r = sgm_sweep_plain(cost, p2e, direction, p1, label_ext,
-                              nl).to(s_dtype)
-        return l_r if s is None else s.add_(l_r)
+        return sgm_sweep_plain_into(cost, p2e, direction, p1, s, s_dtype,
+                                    label_ext, nl, init_carry, return_carry)
     if cost.device.type != "cuda":
         raise ValueError(f"sgm_sweep: unsupported device {cost.device}")
     if nd % 32 != 0 or nd > 256:
         raise ValueError(f"sgm_sweep kernel needs D a multiple of 32 up to "
                          f"256, got {nd}")
+    if init_carry is not None:
+        tensors.append(init_carry)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("sgm_sweep takes contiguous tensors")
     fresh = s is None
     if fresh:
         s = torch.empty(cost.shape, dtype=s_dtype, device=cost.device)
-    if s.numel() == 0:
-        return s
-    b = cost.shape[0] if cost.dim() == 4 else 1
-    fn = _build.load("sgm_sweep")
-    with torch.cuda.device(cost.device):
-        err = fn(cost.data_ptr(), p2e.data_ptr(), s.data_ptr(),
-                 int(s_dtype == torch.int32), int(fresh), b, h, w, nd, nl,
-                 label_ext or 0, dy, dx, p1, _build.stream_of(cost))
-    _build.check(err, "sgm_sweep")
-    _build.LAUNCHES["sgm_sweep"] += 1
-    return s
+    carry = None
+    if return_carry:
+        # with H = 1 no walk reaches carry row 1: it is carry-in row 0
+        alloc = torch.zeros if h < 2 else torch.empty
+        carry = alloc(cost.shape[:-3] + (2, w, nd), dtype=torch.int32,
+                      device=cost.device)
+        if h == 1 and init_carry is not None:
+            carry[..., 1, :, :nl] = init_carry[..., 0, :, :nl]
+    if s.numel() > 0:
+        b = cost.shape[0] if cost.dim() == 4 else 1
+        fn = _build.load("sgm_sweep")
+        with torch.cuda.device(cost.device):
+            err = fn(cost.data_ptr(), p2e.data_ptr(), s.data_ptr(),
+                     init_carry.data_ptr() if init_carry is not None else None,
+                     carry.data_ptr() if carry is not None else None,
+                     int(s_dtype == torch.int32), int(fresh), b, h, w, nd,
+                     nl, label_ext or 0, dy, dx, p1, _build.stream_of(cost))
+        _build.check(err, "sgm_sweep")
+        _build.LAUNCHES["sgm_sweep"] += 1
+    return (s, carry) if return_carry else s
 
 
 def aggregate_paths(cost: torch.Tensor, img: torch.Tensor,

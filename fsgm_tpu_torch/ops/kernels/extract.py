@@ -13,6 +13,11 @@ returns five int32 planes of S's leading shape:
                    right-view WTA argmin_d S(y, x+d, d), s_invalid past W;
                    None without with_rwta
 
+For column tiling (fsgm_tpu_torch/parallel/tiled.py) S may be a window
+whose column x sits at the global column gx0 + x of an image w_global
+wide: rho then also needs gx0 + x + d < w_global, and valid x - dr >=
+max(0, -gx0) (ops/extract.py::wta_right_from_s, ::lr_valid).
+
 K4 replaces fsgm_tpu/ops/pallas/extract_tr.py::extract_flow_major.  From
 the label-minor flow S, whose first nl = e * e slots are the (e x e) label
 grid, it returns l_int = argmin_l S (smallest l on ties) and, with
@@ -34,27 +39,40 @@ from fsgm_tpu_torch.ops.kernels import _build
 MAX_WIDTH = 232448 // 8  # two int32 rows of shared memory per block
 
 
+def _w_global(w: int, gx0: int, w_global: int | None) -> int:
+    """w_global, checked (default: the untiled frame, W)."""
+    w_global = w if w_global is None else w_global
+    if w_global < 1 or not -(1 << 30) < gx0 < (1 << 30):
+        raise ValueError(f"window gx0 {gx0}, w_global {w_global}")
+    return w_global
+
+
 def extract_stereo_plain(s: torch.Tensor, s_invalid: int, max_diff: int = 1,
-                         with_sub: bool = True, with_rwta: bool = True):
+                         with_sub: bool = True, with_rwta: bool = True,
+                         gx0: int = 0, w_global: int | None = None):
     """Plain PyTorch version: packed-min WTA, one-hot neighbourhood and the
     index-arithmetic diagonal gather of ops/extract.py."""
     nd = s.shape[-1]
+    w_global = _w_global(s.shape[-2], gx0, w_global)
     d_int = ext.wta(s)
     s_m, s_0, s_p = ext.neighborhood_of_min(s, d_int)
     if not with_rwta:
         return d_int, s_m, s_0, s_p, None
     disp = (ext.subpixel_from_neighborhood(d_int, s_m, s_0, s_p, nd)
             if with_sub else d_int.to(torch.float32))
-    valid = ext.lr_valid(disp, ext.wta_right_from_s(s, s_invalid), max_diff,
-                         nd)
+    valid = ext.lr_valid(disp, ext.wta_right_from_s(s, s_invalid, gx0,
+                                                    w_global),
+                         max_diff, nd, x_lo=max(0, -gx0))
     return d_int, s_m, s_0, s_p, valid.to(torch.int32)
 
 
 def extract_stereo(s: torch.Tensor, s_invalid: int, max_diff: int = 1,
-                   with_sub: bool = True, with_rwta: bool = True):
+                   with_sub: bool = True, with_rwta: bool = True,
+                   gx0: int = 0, w_global: int | None = None):
     """(H, W, D) or (B, H, W, D) int16/int32 S -> (d_int, s_m, s_0, s_p,
     valid), each int32 of S's leading shape (valid None without
-    with_rwta).  One kernel launch covers all B frames."""
+    with_rwta); gx0 / w_global place S's columns in a wider image (module
+    docstring).  One kernel launch covers all B frames."""
     if s.dtype not in (torch.int16, torch.int32) or s.dim() not in (3, 4):
         raise TypeError("extract_stereo takes an (H, W, D) or (B, H, W, D) "
                         "int16/int32 S")
@@ -62,9 +80,10 @@ def extract_stereo(s: torch.Tensor, s_invalid: int, max_diff: int = 1,
     if not 0 < nd <= 256 or not 0 <= s_invalid < (1 << 22):
         raise ValueError("extract_stereo packs (S << 8) | d: needs D <= 256 "
                          "and s_invalid < 2^22")
+    w_global = _w_global(w, gx0, w_global)
     if s.device.type == "cpu":
         return extract_stereo_plain(s, s_invalid, max_diff, with_sub,
-                                    with_rwta)
+                                    with_rwta, gx0, w_global)
     if s.device.type != "cuda":
         raise ValueError(f"extract_stereo: unsupported device {s.device}")
     if nd % 32 != 0 or w > MAX_WIDTH or not s.is_contiguous():
@@ -81,7 +100,7 @@ def extract_stereo(s: torch.Tensor, s_invalid: int, max_diff: int = 1,
         with torch.cuda.device(s.device):
             err = fn(s.data_ptr(), int(s.dtype == torch.int32), *ptrs, b, h,
                      w, nd, s_invalid, max_diff, int(with_sub),
-                     int(with_rwta), _build.stream_of(s))
+                     int(with_rwta), gx0, w_global, _build.stream_of(s))
         _build.check(err, "extract_stereo")
         _build.LAUNCHES["extract_stereo"] += 1
     return tuple(outs) + (() if with_rwta else (None,))

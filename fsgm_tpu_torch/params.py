@@ -4,7 +4,7 @@ distribution settings, and the configs/*.json preset loader.
 The port's own copy of fsgm_tpu/params.py (stdlib only).  The field sets,
 defaults, validation and JSON format are the JAX package's, field for
 field, so every configs/*.json preset loads into equal parameter objects
-in both packages (tests/test_torch_stereo.py holds them equal).
+in both packages (tests/test_torch_presets.py holds them equal).
 
 SGM has no learned weights: the parameter set is the whole state a run
 carries.  All classes are frozen and hashable.

@@ -1,8 +1,9 @@
 """Where the time of one frame goes, from torch.profiler.
 
-    python -m fsgm_tpu_torch.utils.profiling [--pipeline stereo|flow] \\
+    python -m fsgm_tpu_torch.utils.profiling [--pipeline stereo|flow|tiled] \\
         [--preset configs/kitti_stereo.json] [--height 375] [--width 1242] \\
-        [--batch 1] [--calls 10] [--warmup 3] [--seed 0] [--device cuda]
+        [--batch 1] [--tile-mode fast|exact] [--calls 10] [--warmup 3] \\
+        [--seed 0] [--device cuda]
 
 ``--pipeline stereo`` (the default) runs stereo_sgm_batch on B random-dot
 pairs (seeds seed .. seed + B - 1; B = 1 is stereo_sgm) of the given size at
@@ -10,9 +11,13 @@ the preset's D (default preset configs/kitti_stereo.json) in one call, and
 every number below is per frame, i.e. per call divided by B.
 ``--pipeline flow`` runs flow_fsgm on a
 blockwise_flow_pair of that size with motion up to 8 px (default preset
-configs/kitti_flow.json).  Each runs ``warmup`` calls first, then prints
-one line per kernel name (launches per frame, ms per frame, share of the
-busy time), then the totals, and last the whole record as one JSON object:
+configs/kitti_flow.json).  ``--pipeline tiled`` runs stereo_sgm_sharded on
+B random-dot pairs with the preset's distribution (default
+configs/tiled_4k.json, config 5; ``--tile-mode`` overrides its mode), every
+tile on the card, numbers per frame.  Each runs ``warmup`` calls first,
+then prints one line per kernel name (launches per frame, ms per frame,
+share of the busy time), then the totals, and last the whole record as one
+JSON object:
 
   * ``busy_ms``: the sum of the rows, per frame, from torch.profiler over
     ``calls`` back-to-back calls.  On a card the rows are the device's
@@ -31,6 +36,7 @@ Counterpart, for the port, of fsgm_tpu/utils/profiling.py.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -43,11 +49,14 @@ from torch.profiler import ProfilerActivity, profile
 from fsgm_tpu_torch.io import blockwise_flow_pair, random_dot_stereo
 from fsgm_tpu_torch.models.flow import flow_fsgm
 from fsgm_tpu_torch.models.stereo import stereo_sgm_batch
-from fsgm_tpu_torch.params import FlowParams, SGMParams, load_preset
+from fsgm_tpu_torch.params import (DistParams, FlowParams, SGMParams,
+                                   load_preset)
+from fsgm_tpu_torch.parallel import stereo_sgm_sharded
 
 CONFIGS = Path(__file__).resolve().parents[2] / "configs"
 PRESETS = {"stereo": CONFIGS / "kitti_stereo.json",
-           "flow": CONFIGS / "kitti_flow.json"}
+           "flow": CONFIGS / "kitti_flow.json",
+           "tiled": CONFIGS / "tiled_4k.json"}
 FLOW_MAX_MAG = 8  # px of motion in the flow pipeline's synthetic pair
 
 
@@ -130,6 +139,20 @@ def profile_stereo(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
             "shape": [*imgs_l.shape[1:], params.max_disp], **rec}
 
 
+def profile_tiled(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
+                  params: SGMParams, dist: DistParams, calls: int = 10,
+                  warmup: int = 3) -> dict:
+    """The per-frame breakdown record of stereo_sgm_sharded(imgs_l, imgs_r,
+    params, dist) over (F, H, W) pairs, every tile on the images'
+    device."""
+    rec = profile_frames(
+        lambda: stereo_sgm_sharded(imgs_l, imgs_r, params, dist),
+        imgs_l.device, calls, warmup, imgs_l.shape[0])
+    return {"pipeline": "tiled", "batch": imgs_l.shape[0],
+            "dist": dataclasses.asdict(dist),
+            "shape": [*imgs_l.shape[1:], params.max_disp], **rec}
+
+
 def profile_flow(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
                  calls: int = 10, warmup: int = 3) -> dict:
     """The breakdown record of flow_fsgm(img1, img2, params); the device is
@@ -143,11 +166,14 @@ def profile_flow(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="fsgm_tpu_torch.utils.profiling")
     ap.add_argument("--pipeline", default="stereo", choices=sorted(PRESETS))
-    ap.add_argument("--preset", help="default: configs/kitti_<pipeline>.json")
+    ap.add_argument("--preset", help="default: configs/kitti_stereo.json, "
+                    "kitti_flow.json or tiled_4k.json by pipeline")
     ap.add_argument("--height", type=int, default=375)
     ap.add_argument("--width", type=int, default=1242)
-    ap.add_argument("--batch", type=int, default=1, help="stereo: B frames "
-                    "per stereo_sgm_batch call (numbers per frame)")
+    ap.add_argument("--batch", type=int, default=1, help="stereo, tiled: B "
+                    "frames per call (numbers per frame)")
+    ap.add_argument("--tile-mode", choices=["fast", "exact"],
+                    help="tiled: instead of the preset's tile_mode")
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -157,10 +183,10 @@ def main(argv=None) -> int:
         raise SystemExit("--device cuda: no CUDA device is available")
     dev = torch.device(args.device)
     preset = load_preset(args.preset or str(PRESETS[args.pipeline]))
-    if args.batch < 1 or (args.batch > 1 and args.pipeline != "stereo"):
+    if args.batch < 1 or (args.batch > 1 and args.pipeline == "flow"):
         raise SystemExit("--batch B takes B >= 1, and B > 1 only with the "
-                         "stereo pipeline")
-    if args.pipeline == "stereo":
+                         "stereo and tiled pipelines")
+    if args.pipeline in ("stereo", "tiled"):
         params = preset["sgm"]
         pairs = [random_dot_stereo(args.height, args.width, params.max_disp,
                                    seed=args.seed + k)
@@ -168,6 +194,13 @@ def main(argv=None) -> int:
         a = np.stack([p[0] for p in pairs])
         b = np.stack([p[1] for p in pairs])
         run = profile_stereo
+        if args.pipeline == "tiled":
+            dist = preset["dist"]
+            if args.tile_mode:
+                dist = dataclasses.replace(dist, tile_mode=args.tile_mode)
+
+            def run(il, ir, params, calls, warmup):
+                return profile_tiled(il, ir, params, dist, calls, warmup)
     else:
         params = preset["flow"]
         a, b, _, _ = blockwise_flow_pair(args.height, args.width,

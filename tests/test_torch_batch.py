@@ -1,9 +1,5 @@
 """PyTorch port: the batched stereo path (K1, K2 and K3 over B frames).
 
-  * K1's plain version over (B, H, W) census, left and right reference,
-    against JAX cost_tr.cost_volume_wlh_batch (interpret mode) re-laid out
-    to (B, H, W, D) and against cost_volume_stereo / _right per frame;
-    exact;
   * stereo_sgm_batch against JAX stereo_sgm_batch(..., "pallas_tr"), 8
     paths and 16 paths with adaptive P2: invalid masks identical,
     disparities within 1e-3, and each frame bit for bit stereo_sgm alone;
@@ -12,6 +8,7 @@
     the extraction, the median and the whole pipeline over the batch equal
     the same on each frame alone, bit for bit;
   * the kernels' (H, W, ...) calls equal their (1, H, W, ...) calls.
+K1's batched build is held to the JAX package in test_torch_census_cost.py.
 The CUDA kernels themselves are held to these plain versions on the card by
 the `cuda`-marked test here and by chip_smoke.py.
 """
@@ -25,9 +22,6 @@ import jax.numpy as jnp
 
 from fsgm_tpu.io.synthetic import random_dot_stereo
 from fsgm_tpu.models.stereo import stereo_sgm_batch as jax_stereo_sgm_batch
-from fsgm_tpu.ops import cost as jcost
-from fsgm_tpu.ops.census import census_transform as jax_census
-from fsgm_tpu.ops.pallas import cost_tr
 from fsgm_tpu_torch import (DIRS_16, SGMParams, stereo_sgm, stereo_sgm_batch,
                             stereo_sgm_batch_reference)
 from fsgm_tpu_torch.ops import extract as ext
@@ -42,10 +36,6 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _pad8(n):
-    return -(-n // 8) * 8
-
-
 def _pairs(b=B, h=H, w=W, d=D):
     pairs = [random_dot_stereo(h, w, d, seed=10 + s) for s in range(b)]
     return (np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs]))
@@ -58,28 +48,6 @@ def _bleed_pairs(d=D):
     il[0, -1], ir[0, -1] = 255, 255
     il[1, 0], ir[1, 0] = 0, 0
     return il, ir
-
-
-@pytest.mark.parametrize("right_reference", [False, True])
-def test_batched_cost_matches_cost_volume_wlh_batch(right_reference):
-    il, ir = _pairs()
-    jcl = jnp.stack([jax_census(jnp.asarray(a)) for a in il])
-    jcr = jnp.stack([jax_census(jnp.asarray(a)) for a in ir])
-    folded = np.asarray(cost_tr.cost_volume_wlh_batch(jcl, jcr, D, 255,
-                                                      right_reference))
-    hp, wp = _pad8(H), _pad8(W)
-    want = folded.reshape(wp, D, B, hp).transpose(2, 3, 0, 1)[:, :H, :W]
-    cl, cr = census_transform(_t(il)), census_transform(_t(ir))
-    _build.LAUNCHES.clear()
-    ours = cost.census_cost(cl, cr, D, 255, right_reference).numpy()
-    assert sum(_build.LAUNCHES.values()) == 0  # CPU: the plain version
-    assert ours.shape == (B, H, W, D) and ours.dtype == np.uint8
-    np.testing.assert_array_equal(ours, want)
-    per_frame = (jcost.cost_volume_stereo_right if right_reference
-                 else jcost.cost_volume_stereo)
-    for k in range(B):
-        np.testing.assert_array_equal(
-            ours[k], np.asarray(per_frame(jcl[k], jcr[k], D, 255)))
 
 
 @pytest.mark.parametrize("num_paths,adaptive", [(8, False), (16, True)])

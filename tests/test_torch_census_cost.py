@@ -5,7 +5,10 @@ Held against the JAX package on the same numpy inputs, exact:
     w0 | w1 << 32 into the port's one int64 word) for three windows;
   * the cost volume (the plain version K1 is held to on the card) vs the
     two TPU builders it replaces, cost_tr.cost_volume_hlw (strided, as on
-    the main path) and cost_tr.cost_volume_wlh, their pads sliced off.
+    the main path) and cost_tr.cost_volume_wlh, their pads sliced off;
+  * over (B, H, W) census, left and right reference, vs the third one,
+    cost_tr.cost_volume_wlh_batch (interpret mode) re-laid out to
+    (B, H, W, D), and vs cost_volume_stereo / _right per frame.
 The CUDA kernel itself runs only on the card (chip_smoke.py); here the
 wrapper must take the plain version for CPU tensors, and the loader must
 fail loudly without nvcc.
@@ -18,6 +21,7 @@ import jax.numpy as jnp
 
 import golden.sgm as g
 from fsgm_tpu.io.synthetic import random_dot_stereo
+from fsgm_tpu.ops import cost as jcost
 from fsgm_tpu.ops.census import census_transform as jax_census
 from fsgm_tpu.ops.pallas import cost_tr
 from fsgm_tpu_torch.ops import census
@@ -95,6 +99,32 @@ def test_cost_invalid_columns_and_wide_disparity():
                                 g.census_transform(ir), 32, 200)
     np.testing.assert_array_equal(ours, gold)
     assert (ours[:, 3, 4:] == 200).all()
+
+
+@pytest.mark.parametrize("right_reference", [False, True])
+def test_batched_cost_matches_cost_volume_wlh_batch(right_reference):
+    B, H, W, D = 3, 37, 53, 16
+    pairs = [random_dot_stereo(H, W, D, seed=10 + s) for s in range(B)]
+    il = np.stack([p[0] for p in pairs])
+    ir = np.stack([p[1] for p in pairs])
+    jcl = jnp.stack([jax_census(jnp.asarray(a)) for a in il])
+    jcr = jnp.stack([jax_census(jnp.asarray(a)) for a in ir])
+    folded = np.asarray(cost_tr.cost_volume_wlh_batch(jcl, jcr, D, 255,
+                                                      right_reference))
+    hp, wp = _pad8(H), _pad8(W)
+    want = folded.reshape(wp, D, B, hp).transpose(2, 3, 0, 1)[:, :H, :W]
+    cl = census.census_transform(torch.from_numpy(il))
+    cr = census.census_transform(torch.from_numpy(ir))
+    _build.LAUNCHES.clear()
+    ours = cost.census_cost(cl, cr, D, 255, right_reference).numpy()
+    assert sum(_build.LAUNCHES.values()) == 0  # CPU: the plain version
+    assert ours.shape == (B, H, W, D) and ours.dtype == np.uint8
+    np.testing.assert_array_equal(ours, want)
+    per_frame = (jcost.cost_volume_stereo_right if right_reference
+                 else jcost.cost_volume_stereo)
+    for k in range(B):
+        np.testing.assert_array_equal(
+            ours[k], np.asarray(per_frame(jcl[k], jcr[k], D, 255)))
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "invalid_cost"])

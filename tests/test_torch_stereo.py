@@ -1,16 +1,15 @@
-"""PyTorch port: the stereo main path end to end, its CLI and its imports.
+"""PyTorch port: the stereo main path end to end and its imports.
 
   * stereo_sgm on the CPU vs JAX stereo_sgm(..., "pallas_tr") (interpret
     mode) and golden/sgm.py::sgm_stereo: invalid mask identical, valid
     disparity within 1e-3 (f32 subpixel vs golden's f64);
   * vs the frozen fixtures (tests/fixtures, params from
     tools/freeze_fixtures.py): cost, S and d_int exact, disp within 1e-3;
-  * stereo_sgm_batch == per-frame stereo_sgm; the CLI on PNGs; importing
-    the port loads no module of jax, fsgm_tpu or golden; every
-    configs/*.json loads into the port's parameter classes equal to the
-    JAX package's; lr_mode="reagg" and fill_invalid are honoured, not
-    substituted (golden/sgm.py); the profiler's breakdown adds up, for one
-    frame and per frame of a batch.
+  * stereo_sgm_batch == per-frame stereo_sgm; importing the port loads no
+    module of jax, fsgm_tpu or golden; lr_mode="reagg" and fill_invalid are
+    honoured, not substituted (golden/sgm.py).
+The CLI and the profiler are tested in test_torch_cli.py, the presets and
+parameter classes in test_torch_presets.py.
 The kernels themselves are checked on the card by chip_smoke.py and by the
 `cuda`-marked test here, which skips without a card.
 """
@@ -27,17 +26,13 @@ import torch
 import jax.numpy as jnp
 
 import golden.sgm as g
-from fsgm_tpu.io import kitti
-from fsgm_tpu.io.images import save_gray
 from fsgm_tpu.io.synthetic import random_dot_stereo
 from fsgm_tpu.models.stereo import stereo_sgm as jax_stereo_sgm
 import fsgm_tpu_torch
 from fsgm_tpu_torch import (SGMParams, stereo_sgm, stereo_sgm_batch,
                             stereo_sgm_reference)
-from fsgm_tpu_torch.cli.main import main as cli_main
 from fsgm_tpu_torch.ops.census import census_transform
 from fsgm_tpu_torch.ops.kernels import aggregate, cost, extract
-from fsgm_tpu_torch.utils.profiling import profile_stereo
 
 REPO = Path(__file__).resolve().parents[1]
 FIXDIR = REPO / "tests" / "fixtures"
@@ -127,53 +122,6 @@ def test_unported_options_are_refused(kw):
     assert not np.array_equal(ours, plain)
 
 
-def test_cli_stereo_on_cpu(tmp_path, capsys):
-    il, ir, _ = random_dot_stereo(24, 40, 16, seed=2)
-    save_gray(tmp_path / "l.png", il)
-    save_gray(tmp_path / "r.png", ir)
-    out = tmp_path / "d.png"
-    rc = cli_main(["stereo", str(tmp_path / "l.png"),
-                   str(tmp_path / "r.png"), "-o", str(out),
-                   "--preset", str(REPO / "configs" / "kitti_stereo.json"),
-                   "--device", "cpu"])
-    assert rc == 0
-    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rec["cmd"] == "stereo" and (rec["h"], rec["w"], rec["d"]) == (
-        24, 40, 128)
-    p = fsgm_tpu_torch.load_preset(str(REPO / "configs" /
-                                       "kitti_stereo.json"))["sgm"]
-    want = stereo_sgm(_t(il), _t(ir), p).numpy()
-    got = kitti.read_disparity_png(out)
-    np.testing.assert_allclose(got[want >= 0], want[want >= 0],
-                               atol=1 / 256)
-    assert rec["valid_frac"] == round(float((want >= 0).mean()), 4)
-
-
-def test_cli_cuda_device_needs_a_card(tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA card is present")
-    with pytest.raises(SystemExit, match="cuda"):
-        cli_main(["stereo", "l.png", "r.png", "-o", str(tmp_path / "d.png"),
-                  "--max-disp", "16"])
-
-
-def test_profile_breakdown_adds_up_on_cpu():
-    il, ir, _ = random_dot_stereo(16, 24, 16, seed=3)
-    rec = profile_stereo(_t(il), _t(ir), SGMParams(max_disp=16), calls=1,
-                         warmup=0)
-    assert rec["device"] == "cpu" and rec["peak_mib"] is None
-    assert rec["batch"] == 1 and rec["shape"] == [16, 24, 16]
-    batch = profile_stereo(_t(np.stack([il, il])), _t(np.stack([ir, ir])),
-                           SGMParams(max_disp=16), calls=1, warmup=0)
-    assert batch["batch"] == 2 and batch["frames_per_call"] == 2
-    assert batch["launches"] == pytest.approx(
-        sum(r["launches"] for r in batch["rows"]))
-    assert rec["rows"] and all(r["ms"] > 0 for r in rec["rows"])
-    assert sum(r["ms"] for r in rec["rows"]) == pytest.approx(rec["busy_ms"])
-    assert sum(r["share"] for r in rec["rows"]) == pytest.approx(1.0)
-    assert rec["wall_ms"] > 0 and rec["busy_share"] > 0
-
-
 def test_importing_the_port_never_loads_jax():
     """Every module of the port, imported in a fresh interpreter, loads no
     module of jax, of the JAX package or of golden/."""
@@ -190,46 +138,9 @@ def test_importing_the_port_never_loads_jax():
     foreign = [m for m in loaded
                if m in roots or m.startswith(tuple(r + "." for r in roots))]
     assert len(mods) >= 15 and "fsgm_tpu_torch.models.flow" in loaded
+    assert {"fsgm_tpu_torch.parallel.tiled",
+            "fsgm_tpu_torch.parallel.tiled_flow"} <= set(loaded)
     assert foreign == []
-
-
-@pytest.mark.parametrize("preset", sorted(
-    p.name for p in (REPO / "configs").glob("*.json")))
-def test_presets_load_into_equal_parameters(preset):
-    """Every configs/*.json loads into the port's own classes with the JAX
-    package's fields and values, and round-trips through its JSON."""
-    import dataclasses
-    from fsgm_tpu import params as jparams
-    from fsgm_tpu_torch import params as tparams
-    path = str(REPO / "configs" / preset)
-    want, got = jparams.load_preset(path), tparams.load_preset(path)
-    assert got.keys() == want.keys()
-    for key, w in want.items():
-        g_ = got[key]
-        if not dataclasses.is_dataclass(w):
-            assert g_ == w
-            continue
-        assert type(g_).__module__ == "fsgm_tpu_torch.params"
-        assert type(g_).__name__ == type(w).__name__
-        assert dataclasses.asdict(g_) == dataclasses.asdict(w)
-        assert tparams.params_to_json(g_) == jparams.params_to_json(w)
-        assert tparams.params_from_json(tparams.params_to_json(g_)) == g_
-
-
-def test_param_constants_and_defaults_match_jax():
-    import dataclasses
-    from fsgm_tpu import params as jparams
-    from fsgm_tpu_torch import params as tparams
-    for name in ("DIRS_8", "DIRS_16", "INVALID"):
-        assert getattr(tparams, name) == getattr(jparams, name)
-    for cls in ("SGMParams", "FlowParams", "DistParams"):
-        assert dataclasses.asdict(getattr(tparams, cls)()) == \
-            dataclasses.asdict(getattr(jparams, cls)())
-    for args in ((7, 100), (3, 60, 24), (0, 5)):
-        assert tparams.forgetting_margin(*args) == \
-            jparams.forgetting_margin(*args)
-    with pytest.raises(ValueError, match="fb_backward"):
-        tparams.FlowParams(fb_backward="both")
 
 
 @pytest.fixture
