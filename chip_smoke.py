@@ -2,17 +2,19 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
-Five main paths: stereo (configs/kitti_stereo.json, 375x1242, D=128), fSGM
+Seven main paths: stereo (configs/kitti_stereo.json, 375x1242, D=128), fSGM
 flow (configs/kitti_flow.json, 375x1242, 4 levels, 81 labels), batched
 stereo (stereo_sgm_batch, 16 frames of config 2 in one pass), tiled stereo
 (stereo_sgm_sharded at config 5, configs/tiled_4k.json: 2 frames of
 2160x3840, D=128, 2 frame shards x 4 row tiles, fast mode) and tiled flow
-(flow_fsgm_sharded, config 4 at 4K with 5 levels, 3 row tiles).  Phases,
+(flow_fsgm_sharded, config 4 at 4K with 5 levels, 3 row tiles), and two variants: stereo_sgm with extract="minor" and
+fuse_families=True (config 2) and flow_fsgm with fuse_families=True
+(config 4).  Phases,
 each of which raises on failure (non-zero exit, no ok line):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. build the five kernels from fsgm_tpu_torch/csrc, one nvcc per source,
-     all started together;
+  1. build the kernels from fsgm_tpu_torch/csrc, one nvcc per source (six
+     sources, eight entry points), all started together;
   2. stereo kernels K1 census_cost, K2 sgm_sweep (1D labels), K3
      extract_stereo against their plain PyTorch versions on the card,
      exact, at the KITTI shape (random-dot pair) and at 37x53, D=32;
@@ -74,14 +76,34 @@ each of which raises on failure (non-zero exit, no ok line):
      stereo_sgm_batch and of tiled 4K flow against flow_fsgm, and the times
      of K2 with carry on the config-5 tile (and of its two horizontal
      directions on one frame of it, held to their plain versions) and of
-     K3 on a KITTI window.
+     K3 on a KITTI window;
+  9. the variants: (a) K2's family launch (sgm_sweep_family) against its
+     plain version, exact: both direction groups at KITTI for 1 and 16
+     frames (int16 S), at 37x53, 16 paths, adaptive, int32 S, on the
+     config-4 level-0 flow shape (81 labels in 96), and the down family
+     added into an existing S (tools/trexp.py's kernel); K3's right-view
+     pass (wta_right) and K3 without it at KITTI, wta_right at
+     tools/strideroll_probe.py's shape (376x1280x128 int32); K1 with 9x7
+     census; the min16_probe forms against torch.minimum; (b) stereo_sgm
+     with extract="minor" and fuse_families=True equal to the default bit
+     for bit at config 2 (the stereo variants path: launches counted; and
+     B=16 through stereo_sgm_batch) and at config 1 (B=16), and flow_fsgm
+     with fuse_families=True equal to the default at config 4 (the fused
+     flow path: launches counted); (c) CUDA-event ms of each new kernel
+     beside its plain version and bound (and the per-direction launches it
+     replaces), and ms per frame of both variants of both paths.
 
 Each kernel's bound_ms is the larger of two times for this run's shapes:
 the bytes it must move (each input read once, each output written once;
 label pad slots that no kernel reads are not counted) over 3.35 TB/s, and
 its integer operations over 67e12 op/s (the H100's float32 rate outside the
 tensor cores; the table of peaks has no int32 rate, so this bound is
-generous).  The batched rows count the same per frame, times B.
+generous).  The batched rows count the same per frame, times B.  K2's
+family launch counts what the per-direction launches count for the same
+directions (and an S read when it adds into a given S); wta_right 3
+operations per S value (shift, or, min) and one int32 output per pixel;
+min16_probe two inputs read and one output written, one operation per
+value.
 Operations per element: K1 3 (xor, popcount, select) per cost
 byte; K2 8 per label and direction for 1D labels (two shuffled neighbours,
 +P1, three mins, +C-m, the warp min), 11 for 2D labels (two more neighbour
@@ -122,26 +144,43 @@ DISP_TOL = 1e-3  # f32 subpixel: both sides use the same IEEE formula
 FLOW_TOL = 1e-3  # the float tail is the same torch code on both sides
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-# name: (csrc source, TPU kernel it replaces, the others, main paths); the
-# kernels line's `launches` is the first path's count, launches_by_path all
+# kernel name: (csrc source, TPU kernel it replaces, the others, main
+# paths); the kernels line's `launches` is the first path's count,
+# launches_by_path all.  min16_probe is on no path: only phase 9 runs it.
 SOURCES = {
     "census_cost": ("cost", "fsgm_tpu/ops/pallas/cost_tr.py:106",
                     ["fsgm_tpu/ops/pallas/cost_tr.py:264",
-                     "fsgm_tpu/ops/pallas/cost_tr.py:158"],
-                    ("stereo", "stereo_batch", "stereo_tiled")),
+                     "fsgm_tpu/ops/pallas/cost_tr.py:158",
+                     "fsgm_tpu/ops/pallas/cost_pallas.py:56"],
+                    ("stereo", "stereo_batch", "stereo_tiled",
+                     "stereo_variants")),
     "sgm_sweep": ("sgm_sweep", "fsgm_tpu/ops/pallas/aggregate_tr.py:289",
                   ["fsgm_tpu/ops/pallas/aggregate_pallas.py:297",
                    "fsgm_tpu/ops/pallas/aggregate_pallas.py:420"],
                   ("stereo", "flow", "stereo_batch", "stereo_tiled",
                    "flow_tiled")),
+    "sgm_sweep_family": ("sgm_sweep",
+                         "fsgm_tpu/ops/pallas/aggregate_tr.py:451",
+                         ["tools/trexp.py:102"],
+                         ("stereo_variants", "flow_fused")),
     "extract_stereo": ("extract", "fsgm_tpu/ops/pallas/extract_tr.py:227",
-                       None, ("stereo", "stereo_batch", "stereo_tiled")),
+                       ["fsgm_tpu/ops/pallas/extract_pallas.py:82"],
+                       ("stereo", "stereo_batch", "stereo_tiled",
+                        "stereo_variants")),
+    "wta_right": ("extract", "fsgm_tpu/ops/pallas/extract_tr.py:299",
+                  ["tools/strideroll_probe.py:34",
+                   "tools/strideroll_probe.py:59",
+                   "tests/unit/test_property.py:142"],
+                  ("stereo_variants",)),
     "extract_flow": ("extract_flow", "fsgm_tpu/ops/pallas/extract_tr.py:387",
-                     None, ("flow", "flow_tiled")),
+                     None, ("flow", "flow_tiled", "flow_fused")),
     "label_minor_from_major": (
         "transpose", "fsgm_tpu/ops/pallas/transpose_pallas.py:83", None,
-        ("flow", "flow_tiled")),
+        ("flow", "flow_tiled", "flow_fused")),
+    "min16_probe": ("min16_probe", "tools/tr_int16_probe.py:41", None, ()),
 }
+PROBE_SHAPE = (376, 1280, 128)  # tools/strideroll_probe.py's H, W, L
+MIN16_N = 1 << 26               # values per min16_probe input
 CONFIG5 = "configs/tiled_4k.json"
 UHD_FLOW_LEVELS = 5  # bench.py's 4kflow leg: config 4 with one more level
 FOREIGN = ("jax", "fsgm_tpu", "golden")
@@ -990,6 +1029,371 @@ def time_tiled(params, dev, card_line: str) -> dict:
                 window=window_row)
 
 
+def family_case(cost, img, dirs, p1, p2, adaptive, s_max, tag,
+                label_ext=None, nl=None) -> int:
+    """9(a): K2's family launches over the direction groups of dirs (the
+    first writes a fresh S, the next adds into it) against
+    sgm_sweep_family_plain, and their S against the per-direction
+    launches' S; the largest absolute error (must be 0)."""
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    s_dtype = agg.plan_dtypes(s_max)
+    groups = agg.direction_groups(dirs)
+    s, want, worst = None, None, 0
+    for group in groups:
+        tables = torch.stack([agg.p2_effective(img, r, p1, p2, adaptive)
+                              for r in group])
+        s = agg.sgm_sweep_family(cost, tables, group, p1, s=s,
+                                 s_dtype=s_dtype, label_ext=label_ext, nl=nl)
+        part = agg.sgm_sweep_family_plain(cost, tables, group, p1, label_ext,
+                                          nl)
+        want = part if want is None else want.add_(part)
+        del tables, part
+        worst = max(worst, max_err(s, want))
+        require(worst == 0, f"{tag}: family launch {group} != plain")
+    del want
+    per_dir = agg.aggregate_paths(cost, img, dirs, p1, p2, adaptive, s_max,
+                                  label_ext, nl)
+    require(s.dtype == per_dir.dtype and torch.equal(s, per_dir),
+            f"{tag}: family S != the per-direction launches' S")
+    print(f"{tag}: {len(groups)} K2 family launches == plain and == the "
+          f"{len(dirs)} per-direction launches (S {s.dtype}), max_abs_err "
+          f"{worst}")
+    return worst
+
+
+def group_tables(img, dirs, p1, p2, adaptive) -> list:
+    """[(group, its stacked P2' tables)] for the family launches."""
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    return [(g, torch.stack([agg.p2_effective(img, r, p1, p2, adaptive)
+                             for r in g]))
+            for g in agg.direction_groups(dirs)]
+
+
+def family_sweeps(cost, groups, p1, s_dtype, label_ext=None, nl=None,
+                  plain: bool = False):
+    """S of the family launches over prebuilt tables (or their plain
+    version)."""
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    if plain:
+        return sum(agg.sgm_sweep_family_plain(cost, t, g, p1, label_ext, nl)
+                   for g, t in groups).to(s_dtype)
+    s = None
+    for g, t in groups:
+        s = agg.sgm_sweep_family(cost, t, g, p1, s=s, s_dtype=s_dtype,
+                                 label_ext=label_ext, nl=nl)
+    return s
+
+
+def check_variant_kernels(params, fparams, dev) -> dict:
+    """9(a): the family launch, wta_right, K3 without the right-view pass,
+    K1 with 9x7 census and the min16_probe forms against their plain
+    versions; the largest absolute error per kernel (all must be 0)."""
+    from fsgm_tpu_torch import DIRS_16
+    from fsgm_tpu_torch.ops.census import census_transform
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    from fsgm_tpu_torch.ops.kernels import cost, extract, probe, transpose
+
+    h, w, d = KITTI
+    kw = dict(p1=params.p1, p2=params.p2, adaptive=params.adaptive_p2)
+    tl, tr, _ = pair(h, w, d, SEED, dev)
+    c = cost.census_cost(census_transform(tl, params.census_window),
+                         census_transform(tr, params.census_window), d,
+                         params.invalid_cost)
+    k2 = family_case(c, tl, params.dirs, s_max=params.s_invalid,
+                     tag="KITTI 1 frame", **kw)
+    # #14: the down family added into an S that holds the horizontal pair
+    horiz = [r for r in params.dirs if r[0] == 0]
+    down = [r for r in params.dirs if r[0] == 1]
+    s0 = agg.aggregate_paths(c, tl, horiz, params.p1, params.p2,
+                             params.adaptive_p2, params.s_invalid)
+    (_, tables), = group_tables(tl, down, **kw)
+    got = agg.sgm_sweep_family(c, tables, down, params.p1, s=s0.clone())
+    e = max_err(got, s0.to(torch.int32) + agg.sgm_sweep_family_plain(
+        c, tables, down, params.p1))
+    require(e == 0, f"down family into S != plain ({e})")
+    print(f"KITTI down family {down} added into S: == plain, max_abs_err {e}")
+    k2 = max(k2, e)
+    s = agg.aggregate_paths(c, tl, params.dirs, params.p1, params.p2,
+                            params.adaptive_p2, params.s_invalid)
+    k3 = max_err(extract.wta_right(s, params.s_invalid),
+                 extract.wta_right_plain(s, params.s_invalid))
+    got = extract.extract_stereo(s, params.s_invalid, params.lr_max_diff,
+                                 params.subpixel, with_rwta=False)
+    want = extract.extract_stereo_plain(s, params.s_invalid,
+                                        params.lr_max_diff, params.subpixel,
+                                        with_rwta=False)
+    k3_left = max(max_err(a, b) for a, b in zip(got[:4], want[:4]))
+    require(k3 == 0 and k3_left == 0 and got[4] is None,
+            f"KITTI wta_right {k3} / K3 without rwta {k3_left} != plain")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    sp = torch.randint(0, 1 << 15, PROBE_SHAPE, generator=g, device=dev,
+                       dtype=torch.int32)
+    k3 = max(k3, max_err(extract.wta_right(sp, 1 << 15),
+                         extract.wta_right_plain(sp, 1 << 15)))
+    require(k3 == 0, "wta_right at the probe shape != plain")
+    print(f"wta_right == plain at KITTI ({s.dtype}) and at {PROBE_SHAPE} "
+          f"int32; K3 without the right-view pass == plain: max_abs_err "
+          f"{k3}, {k3_left}")
+    del s, s0, sp, got, want
+    c97 = (census_transform(tl, (9, 7)), census_transform(tr, (9, 7)), d,
+           params.invalid_cost)
+    k1 = max_err(cost.census_cost(*c97), cost.census_cost_plain(*c97))
+    require(k1 == 0, "K1 with 9x7 census != plain")
+    print(f"K1 with 9x7 census (62 bits) == plain at KITTI: max_abs_err {k1}")
+    # 16 frames, int16 S
+    bl, br = frame_stack(h, w, d, BATCH, SEED, dev, bleed=True)
+    bc = cost.census_cost(census_transform(bl, params.census_window),
+                          census_transform(br, params.census_window), d,
+                          params.invalid_cost)
+    k2 = max(k2, family_case(bc, bl, params.dirs, s_max=params.s_invalid,
+                             tag=f"KITTI {BATCH} frames", **kw))
+    del bl, br, bc
+    torch.cuda.empty_cache()
+    sl, sr = frame_stack(*SMALL, 2, SEED, dev, bleed=True)
+    sc = cost.census_cost(census_transform(sl), census_transform(sr),
+                          SMALL[2])
+    k2 = max(k2, family_case(sc, sl, DIRS_16, 7, 60, True, 40000,
+                             "37x53x32 16-path adaptive, int32 S"))
+    lv = flow_level(FLOW_HW, fparams, dev)
+    fc = transpose.label_minor_from_major(lv.pop("cost_m"))
+    k2 = max(k2, family_case(fc, lv["img"], lv["dirs"], lv["p1"], fparams.p2,
+                             fparams.adaptive_p2,
+                             8 * (fparams.invalid_cost + fparams.p2),
+                             "config-4 level 0 (2D labels, 81 in 96)",
+                             lv["e"], lv["nl"]))
+    del lv, fc
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a, b = (torch.randint(-32768, 32768, (MIN16_N,), generator=g, device=dev,
+                          dtype=torch.int32) for _ in range(2))
+    a[:3] = torch.tensor([-32768, 32767, 5], device=dev)
+    b[:3] = torch.tensor([32767, -32768, 5], device=dev)
+    k16 = 0
+    for form in probe.FORMS:
+        x, y = (a, b) if form == "int32" else (a.to(torch.int16),
+                                               b.to(torch.int16))
+        k16 = max(k16, max_err(probe.min_probe(x, y, form),
+                               torch.minimum(x, y)))
+        require(k16 == 0, f"min16_probe {form} != torch.minimum")
+    print(f"min16_probe {probe.FORMS} == torch.minimum on {MIN16_N} values: "
+          f"max_abs_err {k16}")
+    return {"sgm_sweep_family": k2, "wta_right": k3, "extract_stereo": k3_left,
+            "census_cost": k1, "min16_probe": k16}
+
+
+def check_variant_paths(params, tparams, fparams, f1, f2, dev,
+                        launches: dict) -> None:
+    """9(b): stereo_sgm(extract="minor", fuse_families=True) and
+    stereo_sgm_batch with both at configs 2 and 1, and flow_fsgm with
+    fuse_families=True at config 4, each equal to its default bit for bit;
+    the variant paths' launches (counted in that call only) go into
+    launches["stereo_variants"] and launches["flow_fused"]."""
+    from fsgm_tpu_torch import flow_fsgm, stereo_sgm, stereo_sgm_batch
+    from fsgm_tpu_torch.ops.kernels import _build
+
+    h, w, d = KITTI
+    tl, tr, _ = pair(h, w, d, SEED, dev)
+    want = stereo_sgm(tl, tr, params)
+    _build.LAUNCHES.clear()
+    got = stereo_sgm(tl, tr, params, extract="minor", fuse_families=True)
+    torch.cuda.synchronize()
+    launches["stereo_variants"] = dict(_build.LAUNCHES)
+    print(f"launches in one stereo_sgm(extract=\"minor\", "
+          f"fuse_families=True) call: {launches['stereo_variants']}")
+    require(launches["stereo_variants"] == {
+        "census_cost": 1, "sgm_sweep_family": 2, "extract_stereo": 1,
+        "wta_right": 1}, "stereo variants launches")
+    require(launches["stereo"].get("sgm_sweep") == len(params.dirs),
+            "stereo K2 launches")
+    require(torch.equal(got, want), "config 2 minor + fused != default")
+    for tag, p, shape in (("config 2", params, KITTI),
+                          ("config 1", tparams, TSUKUBA)):
+        bl, br = frame_stack(*shape, BATCH, SEED, dev)
+        require(torch.equal(stereo_sgm_batch(bl, br, p, "minor", True),
+                            stereo_sgm_batch(bl, br, p)),
+                f"{tag} B={BATCH} minor + fused != default")
+        del bl, br
+    print(f"stereo_sgm(extract=\"minor\", fuse_families=True) == default "
+          f"bit for bit at config 2 (1 frame; K2 launches 2 against "
+          f"{launches['stereo']['sgm_sweep']}) and through stereo_sgm_batch "
+          f"at configs 2 and 1 with {BATCH} frames")
+    want = flow_fsgm(f1, f2, fparams)
+    _build.LAUNCHES.clear()
+    got = flow_fsgm(f1, f2, fparams, fuse_families=True)
+    torch.cuda.synchronize()
+    launches["flow_fused"] = dict(_build.LAUNCHES)
+    print(f"launches in one flow_fsgm(fuse_families=True) call: "
+          f"{launches['flow_fused']}")
+    n_calls = launches["flow"]["extract_flow"]  # level calls of one frame
+    require(launches["flow_fused"].get("sgm_sweep_family") == 2 * n_calls
+            and "sgm_sweep" not in launches["flow_fused"]
+            and launches["flow"].get("sgm_sweep") == 8 * n_calls,
+            "flow fused K2 launches")
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "config 4 fused != default")
+    print(f"flow_fsgm(fuse_families=True) == default bit for bit at config "
+          f"4 (K2 launches {2 * n_calls} against {8 * n_calls})")
+
+
+def time_variants(params, fparams, f1, f2, dev, card_line: str) -> dict:
+    """9(c): CUDA-event ms of the new kernels beside their plain versions,
+    bounds and the per-direction launches, and ms per frame of both
+    variants of both paths."""
+    from fsgm_tpu_torch import flow_fsgm, stereo_sgm, stereo_sgm_batch
+    from fsgm_tpu_torch.ops.census import census_transform
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    from fsgm_tpu_torch.ops.kernels import cost, extract, probe, transpose
+
+    h, w, d = KITTI
+    kw = dict(p1=params.p1, p2=params.p2, adaptive=params.adaptive_p2)
+    s_dtype = agg.plan_dtypes(params.s_invalid)
+    s_bytes = torch.tensor([], dtype=s_dtype).element_size()
+    n_dirs, hw = len(params.dirs), h * w
+    rows = {}
+
+    def k2_row(c, groups, p1, nl, frames, s_dt, label_ext=None, ops=8):
+        """The family launches over prebuilt tables, the per-direction
+        launches over the same tables and the plain version."""
+        flat = [(r, t[i]) for g, t in groups for i, r in enumerate(g)]
+
+        def per_direction():
+            s = None
+            for r, p2e in flat:
+                s = agg.sgm_sweep(c, p2e, r, p1, s=s, s_dtype=s_dt,
+                                  label_ext=label_ext, nl=nl)
+            return s
+
+        fhw = frames * c.shape[-3] * c.shape[-2]
+        eb = torch.tensor([], dtype=s_dt).element_size()
+        b_ms, b_by = bound(fhw * nl + len(flat) * fhw * 4 + fhw * nl * eb,
+                           ops * len(flat) * fhw * nl)
+        return dict(
+            frames=frames, launches=len(groups),
+            ms=median_ms(lambda: family_sweeps(c, groups, p1, s_dt,
+                                               label_ext, nl)),
+            per_direction_ms=median_ms(per_direction),
+            per_direction_launches=len(flat),
+            plain_ms=median_ms(lambda: family_sweeps(
+                c, groups, p1, s_dt, label_ext, nl, plain=True), reps=1,
+                warmup=0),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    tl, tr, _ = pair(h, w, d, SEED, dev)
+    c = cost.census_cost(census_transform(tl, params.census_window),
+                         census_transform(tr, params.census_window), d,
+                         params.invalid_cost)
+    rows["family"] = k2_row(c, group_tables(tl, params.dirs, **kw),
+                            params.p1, d, 1, s_dtype)
+    # #14: the down family added into an S
+    down = [r for r in params.dirs if r[0] == 1]
+    (_, tables), = group_tables(tl, down, **kw)
+    s_into = agg.aggregate_paths(c, tl, [r for r in params.dirs
+                                         if r[0] == 0],
+                                 params.p1, params.p2, params.adaptive_p2,
+                                 params.s_invalid)
+    b_ms, b_by = bound(hw * d + len(down) * hw * 4 + 2 * hw * d * s_bytes,
+                       8 * len(down) * hw * d)
+    # each call adds at most 3 * 355 to S, which stays below 2^15
+    rows["into_s"] = dict(
+        directions=down, launches=1,
+        ms=median_ms(lambda: agg.sgm_sweep_family(c, tables, down, params.p1,
+                                                  s=s_into)),
+        plain_ms=median_ms(lambda: agg.sgm_sweep_family_plain(
+            c, tables, down, params.p1), reps=1, warmup=0),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    require(int(s_into.max()) < (1 << 15), "timed S left the int16 range")
+    s = family_sweeps(c, group_tables(tl, params.dirs, **kw), params.p1,
+                      s_dtype)
+    b_ms, b_by = bound(hw * d * s_bytes + hw * 4, 3 * hw * d)
+    rows["wta_right"] = dict(
+        shape=[h, w, d], ms=median_ms(lambda: extract.wta_right(
+            s, params.s_invalid)),
+        plain_ms=median_ms(lambda: extract.wta_right_plain(
+            s, params.s_invalid)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    args = (s, params.s_invalid, params.lr_max_diff, params.subpixel, False)
+    b_ms, b_by = bound(hw * d * s_bytes + 4 * hw * 4, 6 * hw * d)
+    rows["k3_left"] = dict(
+        shape=[h, w, d], ms=median_ms(lambda: extract.extract_stereo(*args)),
+        plain_ms=median_ms(lambda: extract.extract_stereo_plain(*args)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del c, tables, s_into, s, args
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    sp = torch.randint(0, 1 << 15, PROBE_SHAPE, generator=g, device=dev,
+                       dtype=torch.int32)
+    ph, pw, pd = PROBE_SHAPE
+    b_ms, b_by = bound(ph * pw * pd * 4 + ph * pw * 4, 3 * ph * pw * pd)
+    rows["wta_right_probe"] = dict(
+        shape=list(PROBE_SHAPE),
+        ms=median_ms(lambda: extract.wta_right(sp, 1 << 15)),
+        with_lr_ms=median_ms(lambda: extract.extract_stereo(
+            sp, 1 << 15, 1, False, True)),
+        plain_ms=median_ms(lambda: extract.wta_right_plain(sp, 1 << 15)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del sp
+    bl, br = frame_stack(h, w, d, BATCH, SEED, dev)
+    bc = cost.census_cost(census_transform(bl, params.census_window),
+                          census_transform(br, params.census_window), d,
+                          params.invalid_cost)
+    rows["family_batch"] = k2_row(bc, group_tables(bl, params.dirs, **kw),
+                                  params.p1, d, BATCH, s_dtype)
+    del bc
+    torch.cuda.empty_cache()
+    lv = flow_level(FLOW_HW, fparams, dev)
+    fc = transpose.label_minor_from_major(lv.pop("cost_m"))
+    tables = dict(zip(lv["dirs"], lv["p2es"]))
+    groups = [(gr, torch.stack([tables[r] for r in gr]))
+              for gr in agg.direction_groups(lv["dirs"])]
+    rows["family_2d"] = k2_row(fc, groups, lv["p1"], lv["nl"], 1,
+                               lv["s_dtype"], label_ext=lv["e"], ops=11)
+    del lv, fc, tables, groups
+    for name, row in rows.items():
+        extra = "".join(f", {k} {row[k]:.4f} ms" for k in
+                        ("per_direction_ms", "with_lr_ms") if k in row)
+        print(f"time {name}: kernel {row['ms']:.4f} ms{extra}, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']} ({card_line})")
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a32, b32 = (torch.randint(-32768, 32768, (MIN16_N,), generator=g,
+                              device=dev, dtype=torch.int32)
+                for _ in range(2))
+    a16, b16 = a32.to(torch.int16), b32.to(torch.int16)
+    forms = {}
+    for form in probe.FORMS:
+        x, y = (a32, b32) if form == "int32" else (a16, b16)
+        b_ms, b_by = bound(3 * MIN16_N * x.element_size(), MIN16_N)
+        forms[form] = dict(ms=median_ms(lambda: probe.min_probe(x, y, form)),
+                           bound_ms=b_ms, bound_by=b_by)
+    lib16 = median_ms(lambda: torch.minimum(a16, b16))
+    lib32 = median_ms(lambda: torch.minimum(a32, b32))
+    rows["min16"] = dict(
+        n=MIN16_N, forms=forms, ms=forms["packed"]["ms"], plain_ms=lib16,
+        bound_ms=forms["packed"]["bound_ms"],
+        bound_by=forms["packed"]["bound_by"], library_ms=lib16,
+        library_int32_ms=lib32)
+    print(f"time min16_probe on {MIN16_N} values: "
+          f"{json.dumps(forms)}; torch.minimum int16 {lib16:.4f} ms, int32 "
+          f"{lib32:.4f} ms ({card_line})")
+    del a32, b32, a16, b16
+
+    e2e = {"stereo": median_ms(lambda: stereo_sgm(tl, tr, params)),
+           "stereo_variants": median_ms(lambda: stereo_sgm(
+               tl, tr, params, extract="minor", fuse_families=True))}
+    e2e.update({
+        "stereo_batch": median_ms(lambda: stereo_sgm_batch(bl, br, params),
+                                  reps=5) / BATCH,
+        "stereo_batch_variants": median_ms(lambda: stereo_sgm_batch(
+            bl, br, params, "minor", True), reps=5) / BATCH,
+        "flow": median_ms(lambda: flow_fsgm(f1, f2, fparams), reps=5),
+        "flow_fused": median_ms(lambda: flow_fsgm(f1, f2, fparams,
+                                                  fuse_families=True),
+                                reps=5)})
+    print(f"variants ms per frame (stereo config 2 at B=1 and B={BATCH}, "
+          f"flow config 4): {json.dumps(e2e)} ({card_line})")
+    rows["e2e"] = e2e
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1013,13 +1417,15 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     # 1. build: one nvcc per source, all started together
-    libs = [lib for lib, _, _, _ in SOURCES.values()]
-    require(sorted(libs) == sorted(_build.ENTRY), "a kernel is not checked")
+    require(sorted(SOURCES) == sorted(_build.ENTRY), "a kernel is not checked")
+    require(all(SOURCES[k][0] == _build.ENTRY[k][0] for k in SOURCES),
+            "SOURCES names another library than _build.ENTRY")
     t0 = time.perf_counter()
     _build.build_all()
-    for lib in libs:
-        _build.load(lib)
-    print(f"build {', '.join(f'{lib}.cu' for lib in libs)}: "
+    for name in SOURCES:
+        _build.load(name)
+    print(f"build {', '.join(f'{lib}.cu' for lib in _build.LIBRARIES)} "
+          f"({len(SOURCES)} entry points): "
           f"{time.perf_counter() - t0:.2f} s")
 
     # 2. stereo kernels against their plain versions
@@ -1287,6 +1693,21 @@ def main() -> int:
     launches["flow_tiled"] = check_uhd_flow(dev)
     errs = merge_errs(errs, check_uhd_flow_tile(dev))
     tiled_times = time_tiled(params, dev, card_line)
+
+    # 9. the variants: the family launch, wta_right, K3 without the
+    #    right-view pass, K1 with 9x7 census, min16_probe; the variant paths
+    #    end to end; timings
+    t9 = time.perf_counter()
+    errs = merge_errs(errs, check_variant_kernels(params, fparams, dev))
+    check_variant_paths(params, tparams, fparams, f1, f2, dev, launches)
+    vtimes = time_variants(params, fparams, f1, f2, dev, card_line)
+    print(f"phase 9: {time.perf_counter() - t9:.2f} s")
+    times["sgm_sweep_family"] = {k: vtimes["family"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    times["wta_right"] = {k: vtimes["wta_right"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    times["min16_probe"] = {k: vtimes["min16"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     for name, (_, _, _, paths) in SOURCES.items():
         for path in paths:
             require(launches[path].get(name, 0) > 0,
@@ -1297,7 +1718,8 @@ def main() -> int:
         row = {"name": name, "route": "cuda",
                "source": f"fsgm_tpu_torch/csrc/{lib}.cu",
                "replaces": replaces,
-               "launches": launches[paths[0]].get(name, 0),
+               "launches": (launches[paths[0]].get(name, 0) if paths
+                            else 0),
                "max_abs_err": errs[name], **times[name]}
         if also:
             row["also_replaces"] = also
@@ -1310,8 +1732,19 @@ def main() -> int:
             row["tile_horizontal"] = tiled_times["tile_horizontal"]
         if name == "extract_stereo":
             row["window"] = tiled_times["window"]
+            row["without_rwta"] = vtimes["k3_left"]
         if name in btimes:  # the same kernel over the batched path's frames
             row["batch"] = btimes[name]
+        if name == "sgm_sweep_family":  # the row's times: a KITTI frame
+            row.update(per_direction_ms=vtimes["family"]["per_direction_ms"],
+                       batch=vtimes["family_batch"],
+                       label_2d=vtimes["family_2d"],
+                       into_s=vtimes["into_s"])
+        if name == "wta_right":  # the row's times: a KITTI frame, int16 S
+            row["probe_shape"] = vtimes["wta_right_probe"]
+        if name == "min16_probe":  # the row's times: the packed form
+            row.update(forms=vtimes["min16"]["forms"], n=MIN16_N,
+                       library_int32_ms=vtimes["min16"]["library_int32_ms"])
         rows.append(row)
 
     foreign = foreign_modules()

@@ -40,6 +40,13 @@
 // the global column 0 (x - dr >= -gx0), as the JAX rule d_R = -2^20 outside
 // the image gives.  gx0 = 0, w_global = W is the untiled frame.  All the
 // windows of one launch share gx0.
+//
+// Right-view pass (fsgm_wta_right; replaces the TPU kernel fsgm_tpu/ops/
+// pallas/extract_tr.py::wta_right_major, which the JAX package's "minor"
+// extraction runs, and the strided-roll shear it and tools/
+// strideroll_probe.py build on): the same block-per-row read of S and the
+// same shared-memory atomicMin scatter give rho(y, x) alone, written as a
+// (B, H, W) int32 plane; no left-view output.  Untiled frames only.
 
 #include <climits>
 #include <cstdint>
@@ -63,6 +70,17 @@ __device__ __forceinline__ int round_disp(int d, int sm, int s0, int sp, int nd,
   return (int)rintf(__fadd_rn((float)d, off));
 }
 
+// rho[x] before the scatter: the packed key of the first d at which x + d
+// leaves the image (x + d >= x_end), or INT_MAX if no d < ND does
+__device__ __forceinline__ void init_rho(int* rho, int w, int x_end, int nd,
+                                         int s_invalid) {
+  for (int x = threadIdx.x; x < w; x += blockDim.x) {
+    const int first_out = max(x_end - x, 0);  // smallest invalid d
+    rho[x] = first_out < nd ? ((s_invalid << 8) | first_out) : INT_MAX;
+  }
+  __syncthreads();
+}
+
 template <int K, typename ST>
 __global__ void __launch_bounds__(kThreads)
 extract_kernel(const ST* __restrict__ s, int* __restrict__ d_out,
@@ -80,13 +98,7 @@ extract_kernel(const ST* __restrict__ s, int* __restrict__ d_out,
   // the first window column at or past the global right edge
   const int x_end = min(w, w_global - gx0);
   const int x_lo = max(0, -gx0);  // the first column inside the image
-  if (with_rwta) {
-    for (int x = threadIdx.x; x < w; x += blockDim.x) {
-      const int first_out = max(x_end - x, 0);  // smallest invalid d
-      rho[x] = first_out < ND ? ((s_invalid << 8) | first_out) : INT_MAX;
-    }
-    __syncthreads();
-  }
+  if (with_rwta) init_rho(rho, w, x_end, ND, s_invalid);
   const long long row = (long long)blockIdx.x * w;  // (b * H + y) * W
   for (int x = warp; x < w; x += nwarps) {
     const ST* sp = s + (row + x) * ND + lane * K;
@@ -132,6 +144,63 @@ extract_kernel(const ST* __restrict__ s, int* __restrict__ d_out,
       ok = (diff < 0 ? -diff : diff) <= max_diff;
     }
     valid_out[row + x] = ok;
+  }
+}
+
+template <int K, typename ST>
+__global__ void __launch_bounds__(kThreads)
+wta_right_kernel(const ST* __restrict__ s, int* __restrict__ rho_out, int w,
+                 int s_invalid) {
+  constexpr int ND = 32 * K;
+  extern __shared__ int rho[];  // packed (S << 8) | d minimum, per x
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  init_rho(rho, w, w, ND, s_invalid);
+  const long long row = (long long)blockIdx.x * w;  // (b * H + y) * W
+  for (int x = warp; x < w; x += nwarps) {
+    const ST* sp = s + (row + x) * ND + lane * K;
+    int v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = sp[k];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int d = lane * K + k;
+      if (x >= d) atomicMin(&rho[x - d], (v[k] << 8) | d);
+    }
+  }
+  __syncthreads();
+  for (int x = threadIdx.x; x < w; x += blockDim.x)
+    rho_out[row + x] = rho[x] & 255;
+}
+
+template <int K, typename ST>
+int launch_wta_right(const void* s, void* rho, long long rows, int w,
+                     int s_invalid, cudaStream_t st) {
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t shmem = sizeof(int) * (size_t)w;
+  auto kernel = wta_right_kernel<K, ST>;
+  if (shmem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<(unsigned)rows, kThreads, shmem, st>>>((const ST*)s, (int*)rho, w,
+                                                  s_invalid);
+  return (int)cudaGetLastError();
+}
+
+template <typename ST>
+int dispatch_wta_right(int k, const void* s, void* rho, long long rows, int w,
+                       int s_invalid, cudaStream_t st) {
+  switch (k) {
+#define FSGM_CASE(KK)                                                     \
+  case KK:                                                                \
+    return launch_wta_right<KK, ST>(s, rho, rows, w, s_invalid, st);
+    FSGM_CASE(1) FSGM_CASE(2) FSGM_CASE(3) FSGM_CASE(4)
+    FSGM_CASE(5) FSGM_CASE(6) FSGM_CASE(7) FSGM_CASE(8)
+#undef FSGM_CASE
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -189,4 +258,19 @@ extern "C" int fsgm_extract_stereo(const void* s, int s_int32, void* d,
                  : dispatch<int16_t>(nd / 32, s, d, sm, s0, sp, valid, rows, w,
                                      s_invalid, max_diff, with_sub, with_rwta,
                                      gx0, w_global, st);
+}
+
+// s (B, H, W, D) int16 (s_int32 = 0) or int32, D a multiple of 32 up to
+// 256; rho (B, H, W) int32: argmin_d S(y, x + d, d), s_invalid where
+// x + d >= W, smallest d on ties.
+extern "C" int fsgm_wta_right(const void* s, int s_int32, void* rho, int b,
+                              int h, int w, int nd, int s_invalid,
+                              void* stream) {
+  if (nd % 32 != 0) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)b * h;
+  cudaStream_t st = (cudaStream_t)stream;
+  return s_int32 ? dispatch_wta_right<int32_t>(nd / 32, s, rho, rows, w,
+                                               s_invalid, st)
+                 : dispatch_wta_right<int16_t>(nd / 32, s, rho, rows, w,
+                                               s_invalid, st);
 }

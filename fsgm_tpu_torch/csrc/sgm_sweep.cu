@@ -34,9 +34,9 @@
 // overlaps the recurrence.  Lines start at every pixel whose predecessor
 // p - r is outside the image (the first |dy| rows in scan order, then the
 // first |dx| columns), which covers the 8 paths and the knight directions
-// (|dy| = 2 steps two rows back) alike.  The launches of one frame's
-// directions run in order on one stream, so the read-modify-write of S
-// needs no atomics.  Batch: one launch per direction covers B frames; the
+// (|dy| = 2 steps two rows back) alike.  The per-direction launches of one
+// frame run in order on one stream, so their read-modify-write of S needs no
+// atomics.  Batch: one launch per direction covers B frames; the
 // global line index gives the frame and the frame's own line, every pixel
 // offset is the frame's 64-bit base plus y * W + x, and a walk stops at its
 // own frame's edge, so a line never continues into the next frame (the TPU
@@ -58,6 +58,24 @@
 // so each carry entry is written once, by the line through that pixel.
 // This is a few loads at a line's start and a few stores at its end: the
 // walk itself is unchanged.
+//
+// Family launch (fsgm_sgm_sweep_family; replaces the TPU kernels fsgm_tpu/
+// ops/pallas/aggregate_tr.py::tr_dual_family_sweep, both families of a
+// direction group in one launch, and tools/trexp.py::tr_row_family_sweep,
+// the down family added into a given S).  One launch walks the lines of up
+// to 16 directions of all B frames, S += sum_r L_r, each direction with its
+// own P2' table.  The global line index is split by direction first (the
+// lines of direction j follow those of j - 1), then by frame and line as
+// above.  Warps of different directions add into the same S cells at the
+// same time, so every S update is an atomic add: int32 S by atomicAdd, int16
+// S by a 32-bit atomicAdd on the aligned word that holds two S values (v, or
+// v << 16 for the upper one; with K even, one add for a lane's two
+// neighbouring labels).  That is exact while every S value stays in
+// [0, 2^15): each L is non-negative and, for int16 S, plan_dtypes bounds
+// the full sum by s_max < 2^15, so no carry crosses from one half into the
+// other.  Integer addition commutes, so any order of the adds gives the same
+// S bit for bit.  A fresh S is zeroed on the stream first.  No carry: the
+// tiled paths keep the per-direction launches.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,7 +86,11 @@ constexpr int kInf = 1 << 30;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 128;  // four lines per block
 
-template <int K, typename ST, bool FRESH>
+// how a sweep writes S: S = L (fresh), S += L by a plain read-modify-write
+// (one direction per launch), or S += L by atomic adds (family launch)
+enum Write { kFresh = 0, kAccum = 1, kAtomic = 2 };
+
+template <int K, typename ST, int MODE>
 __device__ __forceinline__ void load_step(const uint8_t* __restrict__ cost,
                                           const int* __restrict__ p2e,
                                           const ST* __restrict__ s,
@@ -77,7 +99,7 @@ __device__ __forceinline__ void load_step(const uint8_t* __restrict__ cost,
   const uint8_t* cp = cost + pix * (32 * K) + d0;
 #pragma unroll
   for (int k = 0; k < K; ++k) c[k] = cp[k];
-  if (!FRESH) {
+  if (MODE == kAccum) {
     const ST* sp = s + pix * (32 * K) + d0;
 #pragma unroll
     for (int k = 0; k < K; ++k) sv[k] = sp[k];
@@ -85,25 +107,55 @@ __device__ __forceinline__ void load_step(const uint8_t* __restrict__ cost,
   p2v = p2e[pix];
 }
 
-template <int K, typename ST, bool FRESH, bool LABEL2D>
-__global__ void __launch_bounds__(kThreads)
-sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
-                 ST* __restrict__ s, const int* __restrict__ carry_in,
-                 int* __restrict__ carry_out, int h, int w, int nl, int ext,
-                 int dy, int dx, int p1, int n_row_starts, int rows_rem,
-                 int per_frame, long long n_lines) {
+// S[d0 + k] += L[k] for the real labels, by atomic adds (module comment)
+template <int K>
+__device__ __forceinline__ void atomic_add_row(int32_t* sp, const int (&l)[K],
+                                               const bool (&real)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (real[k]) atomicAdd(sp + k, l[k]);
+}
+
+template <int K>
+__device__ __forceinline__ void atomic_add_row(int16_t* sp, const int (&l)[K],
+                                               const bool (&real)[K]) {
+  if constexpr (K % 2 == 0) {
+    // d0 and k are even: S[d0 + k] and S[d0 + k + 1] share one word
+#pragma unroll
+    for (int k = 0; k < K; k += 2) {
+      const unsigned lo = real[k] ? (unsigned)l[k] : 0u;
+      const unsigned hi = real[k + 1] ? (unsigned)l[k + 1] : 0u;
+      if (lo | hi) atomicAdd((unsigned*)(sp + k), lo | (hi << 16));
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (!real[k] || l[k] == 0) continue;
+      const uintptr_t a = (uintptr_t)(sp + k);
+      atomicAdd((unsigned*)(a & ~(uintptr_t)3),
+                (unsigned)l[k] << ((a & 2) * 8));
+    }
+  }
+}
+
+// Walk one path line of direction (dy, dx) in frame `frame`: `line` is the
+// frame's line index (the first n_row_starts lines start in the first |dy|
+// scan rows, the others in the first |dx| columns of the remaining
+// rows_rem rows).  `row` is the warp's shared-memory row (LABEL2D).
+template <int K, typename ST, int MODE, bool LABEL2D>
+__device__ __forceinline__ void walk(const uint8_t* __restrict__ cost,
+                                     const int* __restrict__ p2e,
+                                     ST* __restrict__ s,
+                                     const int* __restrict__ carry_in,
+                                     int* __restrict__ carry_out, int* row,
+                                     int h, int w, int nl, int ext, int dy,
+                                     int dx, int p1, int n_row_starts,
+                                     int rows_rem, long long frame, int line) {
   constexpr int ND = 32 * K;
-  // LABEL2D: each warp's previous L row, read by label index
-  __shared__ int prev_row[LABEL2D ? kThreads / 32 : 1][LABEL2D ? ND : 1];
   const int lane = threadIdx.x & 31;
-  const long long gline = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (gline >= n_lines) return;  // uniform over the warp
-  // the frame and this frame's line: the walk below stays inside [0, H) x
-  // [0, W) of its own frame, whose first pixel is `base`
-  const long long frame = gline / per_frame;
-  const int line = (int)(gline - frame * per_frame);
+  // the walk below stays inside [0, H) x [0, W) of its own frame, whose
+  // first pixel is `base`
   const long long base = frame * h * w;
-  int* row = prev_row[LABEL2D ? (threadIdx.x >> 5) : 0];
   int y, x;
   int start_row = -1;  // the scan row i < |dy| where the line starts, if so
   if (line < n_row_starts) {
@@ -134,7 +186,7 @@ sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
   long long pix = base + (long long)y * w + x;
   int c[K], sv[K], prev[K];
   int p2v;
-  load_step<K, ST, FRESH>(cost, p2e, s, pix, d0, c, sv, p2v);
+  load_step<K, ST, MODE>(cost, p2e, s, pix, d0, c, sv, p2v);
   bool first = true;
   const int ady = dy < 0 ? -dy : dy;
   if (carry_in != nullptr && start_row >= 0 && x - dx >= 0 && x - dx < w) {
@@ -151,7 +203,7 @@ sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
     const long long npix = base + (long long)ny * w + nx;
     int nc[K], nsv[K];
     int np2 = 0;
-    if (more) load_step<K, ST, FRESH>(cost, p2e, s, npix, d0, nc, nsv, np2);
+    if (more) load_step<K, ST, MODE>(cost, p2e, s, npix, d0, nc, nsv, np2);
 
     int l[K];
     if (first) {
@@ -198,12 +250,17 @@ sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
       }
     }
     ST* sp = s + pix * ND + d0;
+    if (MODE == kAtomic) {
+      atomic_add_row<K>(sp, l, real);
+    } else {
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int add = real[k] ? l[k] : 0;
-      sp[k] = (ST)(FRESH ? add : sv[k] + add);
-      prev[k] = l[k];
+      for (int k = 0; k < K; ++k) {
+        const int add = real[k] ? l[k] : 0;
+        sp[k] = (ST)(MODE == kFresh ? add : sv[k] + add);
+      }
     }
+#pragma unroll
+    for (int k = 0; k < K; ++k) prev[k] = l[k];
     const int back = dy > 0 ? h - 1 - y : y;  // scan rows left after this
     if (carry_out != nullptr && back <= 1) {
       int* co = carry_out + ((frame * 2 + back) * w + x) * ND + d0;
@@ -224,35 +281,96 @@ sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
   }
 }
 
-template <int K, typename ST, bool FRESH, bool LABEL2D>
+template <int K, typename ST, int MODE, bool LABEL2D>
+__global__ void __launch_bounds__(kThreads)
+sgm_sweep_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
+                 ST* __restrict__ s, const int* __restrict__ carry_in,
+                 int* __restrict__ carry_out, int h, int w, int nl, int ext,
+                 int dy, int dx, int p1, int n_row_starts, int rows_rem,
+                 int per_frame, long long n_lines) {
+  // LABEL2D: each warp's previous L row, read by label index
+  __shared__ int prev_row[LABEL2D ? kThreads / 32 : 1][LABEL2D ? 32 * K : 1];
+  const long long gline = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (gline >= n_lines) return;  // uniform over the warp
+  const long long frame = gline / per_frame;
+  const int line = (int)(gline - frame * per_frame);
+  walk<K, ST, MODE, LABEL2D>(cost, p2e, s, carry_in, carry_out,
+                             prev_row[LABEL2D ? (threadIdx.x >> 5) : 0], h, w,
+                             nl, ext, dy, dx, p1, n_row_starts, rows_rem,
+                             frame, line);
+}
+
+constexpr int kMaxDirs = 16;
+
+// The directions of one family launch and where their lines start in the
+// launch's global line index (first[n] = all lines of the launch).
+struct Family {
+  int n;
+  int dy[kMaxDirs], dx[kMaxDirs];
+  int n_row_starts[kMaxDirs], rows_rem[kMaxDirs], per_frame[kMaxDirs];
+  long long first[kMaxDirs + 1];
+};
+
+template <int K, typename ST, bool LABEL2D>
+__global__ void __launch_bounds__(kThreads)
+sgm_family_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ p2e,
+                  ST* __restrict__ s, int h, int w, int nl, int ext, int p1,
+                  long long plane, const Family fam) {
+  __shared__ int prev_row[LABEL2D ? kThreads / 32 : 1][LABEL2D ? 32 * K : 1];
+  const long long gline = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (gline >= fam.first[fam.n]) return;  // uniform over the warp
+  int j = 0;
+  while (gline >= fam.first[j + 1]) ++j;
+  const long long local = gline - fam.first[j];
+  const long long frame = local / fam.per_frame[j];
+  const int line = (int)(local - frame * fam.per_frame[j]);
+  walk<K, ST, kAtomic, LABEL2D>(cost, p2e + j * plane, s, nullptr, nullptr,
+                                prev_row[LABEL2D ? (threadIdx.x >> 5) : 0], h,
+                                w, nl, ext, fam.dy[j], fam.dx[j], p1,
+                                fam.n_row_starts[j], fam.rows_rem[j], frame,
+                                line);
+}
+
+// the lines of direction (dy, dx) in one H x W frame
+struct Lines {
+  int n_row_starts, rows_rem, per_frame;
+};
+
+Lines lines_of(int h, int w, int dy, int dx) {
+  const int ady = dy < 0 ? -dy : dy, adx = dx < 0 ? -dx : dx;
+  const int row_band = ady < h ? ady : h;
+  Lines r;
+  r.n_row_starts = row_band * w;
+  r.rows_rem = h - row_band;
+  r.per_frame = r.n_row_starts + r.rows_rem * (adx < w ? adx : w);
+  return r;
+}
+
+template <int K, typename ST, int MODE, bool LABEL2D>
 int launch(const void* cost, const void* p2e, void* s, const void* cin,
            void* cout, int b, int h, int w, int nl, int ext, int dy, int dx,
            int p1, cudaStream_t stream) {
-  const int ady = dy < 0 ? -dy : dy, adx = dx < 0 ? -dx : dx;
-  const int row_band = ady < h ? ady : h;
-  const int n_row_starts = row_band * w;
-  const int rows_rem = h - row_band;
-  const int per_frame = n_row_starts + rows_rem * (adx < w ? adx : w);
-  const long long n_lines = (long long)b * per_frame;
+  const Lines ln = lines_of(h, w, dy, dx);
+  const long long n_lines = (long long)b * ln.per_frame;
   const int per_block = kThreads / 32;
   const long long blocks = (n_lines + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  sgm_sweep_kernel<K, ST, FRESH, LABEL2D><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  sgm_sweep_kernel<K, ST, MODE, LABEL2D><<<(unsigned)blocks, kThreads, 0, stream>>>(
       (const uint8_t*)cost, (const int*)p2e, (ST*)s, (const int*)cin,
-      (int*)cout, h, w, nl, ext, dy, dx, p1, n_row_starts, rows_rem, per_frame,
-      n_lines);
+      (int*)cout, h, w, nl, ext, dy, dx, p1, ln.n_row_starts, ln.rows_rem,
+      ln.per_frame, n_lines);
   return (int)cudaGetLastError();
 }
 
-template <typename ST, bool FRESH, bool LABEL2D>
+template <typename ST, int MODE, bool LABEL2D>
 int dispatch(int k, const void* cost, const void* p2e, void* s, const void* cin,
              void* cout, int b, int h, int w, int nl, int ext, int dy, int dx,
              int p1, cudaStream_t st) {
   switch (k) {
 #define FSGM_CASE(KK)                                                         \
   case KK:                                                                    \
-    return launch<KK, ST, FRESH, LABEL2D>(cost, p2e, s, cin, cout, b, h, w,  \
-                                          nl, ext, dy, dx, p1, st);
+    return launch<KK, ST, MODE, LABEL2D>(cost, p2e, s, cin, cout, b, h, w,   \
+                                         nl, ext, dy, dx, p1, st);
     FSGM_CASE(1) FSGM_CASE(2) FSGM_CASE(3) FSGM_CASE(4)
     FSGM_CASE(5) FSGM_CASE(6) FSGM_CASE(7) FSGM_CASE(8)
 #undef FSGM_CASE
@@ -266,11 +384,41 @@ int dispatch_mode(int fresh, int label2d, int k, const void* cost,
                   int h, int w, int nl, int ext, int dy, int dx, int p1,
                   cudaStream_t st) {
   if (label2d) {
-    return fresh ? dispatch<ST, true, true>(k, cost, p2e, s, cin, cout, b, h, w, nl, ext, dy, dx, p1, st)
-                 : dispatch<ST, false, true>(k, cost, p2e, s, cin, cout, b, h, w, nl, ext, dy, dx, p1, st);
+    return fresh ? dispatch<ST, kFresh, true>(k, cost, p2e, s, cin, cout, b, h, w, nl, ext, dy, dx, p1, st)
+                 : dispatch<ST, kAccum, true>(k, cost, p2e, s, cin, cout, b, h, w, nl, ext, dy, dx, p1, st);
   }
-  return fresh ? dispatch<ST, true, false>(k, cost, p2e, s, cin, cout, b, h, w, nl, ext, dy, dx, p1, st)
-               : dispatch<ST, false, false>(k, cost, p2e, s, cin, cout, b, h, w, nl, ext, dy, dx, p1, st);
+  return fresh ? dispatch<ST, kFresh, false>(k, cost, p2e, s, cin, cout, b, h, w, nl, ext, dy, dx, p1, st)
+               : dispatch<ST, kAccum, false>(k, cost, p2e, s, cin, cout, b, h, w, nl, ext, dy, dx, p1, st);
+}
+
+template <int K, typename ST, bool LABEL2D>
+int launch_family(const void* cost, const void* p2e, void* s, int h, int w,
+                  int nl, int ext, int p1, long long plane, const Family& fam,
+                  cudaStream_t stream) {
+  const int per_block = kThreads / 32;
+  const long long blocks = (fam.first[fam.n] + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return (int)cudaSuccess;
+  sgm_family_kernel<K, ST, LABEL2D><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      (const uint8_t*)cost, (const int*)p2e, (ST*)s, h, w, nl, ext, p1, plane,
+      fam);
+  return (int)cudaGetLastError();
+}
+
+template <typename ST, bool LABEL2D>
+int dispatch_family(int k, const void* cost, const void* p2e, void* s, int h,
+                    int w, int nl, int ext, int p1, long long plane,
+                    const Family& fam, cudaStream_t st) {
+  switch (k) {
+#define FSGM_CASE(KK)                                                         \
+  case KK:                                                                    \
+    return launch_family<KK, ST, LABEL2D>(cost, p2e, s, h, w, nl, ext, p1,   \
+                                          plane, fam, st);
+    FSGM_CASE(1) FSGM_CASE(2) FSGM_CASE(3) FSGM_CASE(4)
+    FSGM_CASE(5) FSGM_CASE(6) FSGM_CASE(7) FSGM_CASE(8)
+#undef FSGM_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -300,4 +448,51 @@ extern "C" int fsgm_sgm_sweep(const void* cost, const void* p2e, void* s,
                  : dispatch_mode<int16_t>(fresh, label2d, k, cost, p2e, s,
                                           carry_in, carry_out, b, h, w, nl,
                                           label_ext, dy, dx, p1, st);
+}
+
+// cost (B, H, W, D) u8; p2e (n_dirs, B, H, W) int32, table j for direction
+// j; s (B, H, W, D) int16 (s_int32 = 0) or int32, S += sum_j L_j by atomic
+// adds (fresh = 1: S is zeroed first on the stream), int16 S values staying
+// in [0, 2^15); dirs: n_dirs (dy, dx) pairs in host memory, 1 <= n_dirs <=
+// 16, |dy|, |dx| <= 2.  D, nl and label_ext as for fsgm_sgm_sweep.  One
+// launch covers every line of every direction of the B frames.
+extern "C" int fsgm_sgm_sweep_family(const void* cost, const void* p2e,
+                                     void* s, int s_int32, int fresh, int b,
+                                     int h, int w, int nd, int nl,
+                                     int label_ext, int n_dirs,
+                                     const int* dirs, int p1, void* stream) {
+  if (nd % 32 != 0 || nd > 256 || nl < 1 || nl > nd || label_ext < 0 ||
+      n_dirs < 1 || n_dirs > kMaxDirs || b < 0 || h < 0 || w < 0)
+    return (int)cudaErrorInvalidValue;
+  Family fam;
+  fam.n = n_dirs;
+  fam.first[0] = 0;
+  for (int j = 0; j < n_dirs; ++j) {
+    const int dy = dirs[2 * j], dx = dirs[2 * j + 1];
+    if ((dy == 0 && dx == 0) || dy < -2 || dy > 2 || dx < -2 || dx > 2)
+      return (int)cudaErrorInvalidValue;
+    const Lines ln = lines_of(h, w, dy, dx);
+    fam.dy[j] = dy;
+    fam.dx[j] = dx;
+    fam.n_row_starts[j] = ln.n_row_starts;
+    fam.rows_rem[j] = ln.rows_rem;
+    fam.per_frame[j] = ln.per_frame;
+    fam.first[j + 1] = fam.first[j] + (long long)b * ln.per_frame;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long plane = (long long)b * h * w;
+  if (fresh) {
+    const size_t bytes = (size_t)plane * nd * (s_int32 ? 4 : 2);
+    cudaError_t e = cudaMemsetAsync(s, 0, bytes, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int k = nd / 32;
+  if (s_int32) {
+    return label_ext > 0
+        ? dispatch_family<int32_t, true>(k, cost, p2e, s, h, w, nl, label_ext, p1, plane, fam, st)
+        : dispatch_family<int32_t, false>(k, cost, p2e, s, h, w, nl, label_ext, p1, plane, fam, st);
+  }
+  return label_ext > 0
+      ? dispatch_family<int16_t, true>(k, cost, p2e, s, h, w, nl, label_ext, p1, plane, fam, st)
+      : dispatch_family<int16_t, false>(k, cost, p2e, s, h, w, nl, label_ext, p1, plane, fam, st);
 }

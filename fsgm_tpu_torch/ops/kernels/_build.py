@@ -12,7 +12,9 @@ carries a hash of the source and the flags, so an edited source rebuilds and
 an unchanged one loads from the build directory.  The build happens at
 first use, never at import: importing this module needs no CUDA toolkit.
 
-Every C entry point returns ``cudaGetLastError()`` after its launch;
+A library may hold several entry points (``ENTRY`` maps each kernel name
+to its library, symbol and C signature).  Every C entry point returns
+``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception.  ``LAUNCHES`` counts the
 kernel launches made by the wrappers in ``ops/kernels/*.py``: each wrapper
 adds one where it launches its kernel, and nowhere else.
@@ -39,17 +41,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signature of each library's entry point: (symbol, argtypes)
+# each entry point: kernel name -> (library csrc/<library>.cu, symbol,
+# argtypes)
 ENTRY = {
-    "cost": ("fsgm_census_cost", [_P, _P, _P] + [_I] * 6 + [_P]),
-    "sgm_sweep": ("fsgm_sgm_sweep", [_P] * 5 + [_I] * 11 + [_P]),
-    "extract": ("fsgm_extract_stereo",
-                [_P, _I] + [_P] * 5 + [_I] * 10 + [_P]),
-    "extract_flow": ("fsgm_extract_flow",
+    "census_cost": ("cost", "fsgm_census_cost",
+                    [_P, _P, _P] + [_I] * 6 + [_P]),
+    "sgm_sweep": ("sgm_sweep", "fsgm_sgm_sweep", [_P] * 5 + [_I] * 11 + [_P]),
+    "sgm_sweep_family": ("sgm_sweep", "fsgm_sgm_sweep_family",
+                         [_P] * 3 + [_I] * 9 + [_P, _I, _P]),
+    "extract_stereo": ("extract", "fsgm_extract_stereo",
+                       [_P, _I] + [_P] * 5 + [_I] * 10 + [_P]),
+    "wta_right": ("extract", "fsgm_wta_right", [_P, _I, _P] + [_I] * 5 + [_P]),
+    "extract_flow": ("extract_flow", "fsgm_extract_flow",
                      [_P, _I] + [_P] * 7 + [_I] * 6 + [_P]),
-    "transpose": ("fsgm_label_minor_from_major",
-                  [_P, _P, _I, _I, _I, _P]),
+    "label_minor_from_major": ("transpose", "fsgm_label_minor_from_major",
+                               [_P, _P, _I, _I, _I, _P]),
+    "min16_probe": ("min16_probe", "fsgm_min16_probe",
+                    [_P, _P, _P, ctypes.c_longlong, _I, _P]),
 }
+LIBRARIES = sorted({lib for lib, _, _ in ENTRY.values()})
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -93,17 +103,18 @@ def build_library(name: str) -> Path:
 
 
 def build_all() -> list[Path]:
-    """Build every library of ENTRY at once: one nvcc process per source,
-    all started together."""
-    with concurrent.futures.ThreadPoolExecutor(len(ENTRY)) as pool:
-        return list(pool.map(build_library, ENTRY))
+    """Build every library at once: one nvcc process per source, all
+    started together."""
+    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        return list(pool.map(build_library, LIBRARIES))
 
 
 @functools.cache
 def load(name: str):
-    """The C entry point of csrc/<name>.cu, built on first use."""
-    symbol, argtypes = ENTRY[name]
-    fn = getattr(ctypes.CDLL(str(build_library(name))), symbol)
+    """The C entry point of kernel ``name`` (ENTRY), its library built on
+    first use."""
+    lib, symbol, argtypes = ENTRY[name]
+    fn = getattr(ctypes.CDLL(str(build_library(lib))), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

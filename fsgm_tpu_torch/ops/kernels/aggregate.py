@@ -34,6 +34,17 @@ the first-generation sweeps fsgm_tpu/ops/pallas/aggregate_pallas.py::
 _row_sweep (vertical family with carries) and ::_col_sweep (horizontal)
 that the tiled path of the JAX package runs.
 
+Family launch (``sgm_sweep_family``): one launch sweeps several directions
+of all B frames and adds the sum of their L_r into S, or writes it as a
+fresh S.  It replaces fsgm_tpu/ops/pallas/aggregate_tr.py::
+tr_dual_family_sweep (``aggregate_paths(..., fuse_families=True)``: one
+launch for the directions with dy != 0, one for those with dy = 0, as the
+JAX package's FSGM_TR_DUAL=1 path groups them) and tools/trexp.py::
+tr_row_family_sweep (the dy = 1 family added into a given S).  The kernel's
+S updates are atomic adds, exact for int16 S while every S value stays in
+[0, 2^15), which plan_dtypes guarantees for the S it plans.  It takes no
+carry: the tiled paths keep the per-direction launches.
+
 Also here, from fsgm_tpu/ops/pallas/aggregate_pallas.py: ``p2_effective``
 (the P2' table, adaptive or not, with the two image rows beyond a tile's
 seam) and ``plan_dtypes`` (int16 S where the preset's bound allows it; the
@@ -42,6 +53,7 @@ kernel computes in int32 either way).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence, Tuple
 
 import torch
@@ -49,6 +61,7 @@ import torch
 from fsgm_tpu_torch.ops.kernels import _build
 
 INF = 1 << 30  # out-of-range label neighbour; INF + P2 + Cmax fits int32
+MAX_FAMILY = 16  # directions of one family launch
 
 
 def plan_dtypes(s_max: int | None) -> torch.dtype:
@@ -128,6 +141,12 @@ def _labels(nd: int, label_ext: int | None, nl: int | None) -> int:
         raise ValueError(f"label_ext {label_ext} needs nl = label_ext^2, "
                          f"got {nl}")
     return nl
+
+
+def _check_direction(direction: Tuple[int, int]) -> None:
+    dy, dx = direction
+    if (dy, dx) == (0, 0) or abs(dy) > 2 or abs(dx) > 2:
+        raise ValueError(f"unsupported direction {direction}")
 
 
 def _check_carry(cost: torch.Tensor, direction: Tuple[int, int],
@@ -240,8 +259,7 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
     (module docstring).  One kernel launch covers all B frames, each with
     its own carry slice."""
     dy, dx = direction
-    if (dy, dx) == (0, 0) or abs(dy) > 2 or abs(dx) > 2:
-        raise ValueError(f"unsupported direction {direction}")
+    _check_direction(direction)
     if cost.dtype != torch.uint8 or cost.dim() not in (3, 4):
         raise TypeError("sgm_sweep takes an (H, W, D) or (B, H, W, D) uint8 "
                         "cost volume")
@@ -298,20 +316,125 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
     return (s, carry) if return_carry else s
 
 
+def sgm_sweep_family_plain(cost: torch.Tensor, p2e_tables,
+                           directions: Sequence[Tuple[int, int]], p1: int,
+                           label_ext: int | None = None,
+                           nl: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the family launch: sum_r L_r over the
+    directions as (..., H, W, D) int32, the per-direction plain sweeps
+    summed; p2e_tables[j] is direction j's P2' table."""
+    return sum(sgm_sweep_plain(cost, p2e, r, p1, label_ext, nl)
+               for r, p2e in zip(directions, p2e_tables, strict=True))
+
+
+def sgm_sweep_family(cost: torch.Tensor, p2e_tables: torch.Tensor,
+                     directions: Sequence[Tuple[int, int]], p1: int,
+                     s: torch.Tensor | None = None,
+                     s_dtype: torch.dtype = torch.int16,
+                     label_ext: int | None = None,
+                     nl: int | None = None,
+                     init_carry: torch.Tensor | None = None,
+                     return_carry: bool = False) -> torch.Tensor:
+    """Aggregate several directions in one launch: S += sum_r L_r in place
+    and return S, or, with s None, return a fresh S = sum_r L_r in
+    s_dtype.  cost, label_ext and nl as for sgm_sweep; p2e_tables
+    (n, B, H, W) int32 ((n, H, W) without a frame axis): table j is the
+    P2' of direction j, as p2_effective gives it; at most 16 directions.
+    An int16 S must hold values in [0, 2^15) before and after (the
+    kernel's atomic adds; plan_dtypes guarantees it for its S).  No carry
+    (module docstring): init_carry or return_carry raises."""
+    if init_carry is not None or return_carry:
+        raise ValueError("sgm_sweep_family takes no carry; the tiled paths "
+                         "sweep one direction per launch (sgm_sweep)")
+    directions = [tuple(r) for r in directions]
+    if not 0 < len(directions) <= MAX_FAMILY:
+        raise ValueError(f"a family launch takes 1 to {MAX_FAMILY} "
+                         f"directions, got {len(directions)}")
+    for r in directions:
+        _check_direction(r)
+    if cost.dtype != torch.uint8 or cost.dim() not in (3, 4):
+        raise TypeError("sgm_sweep_family takes an (H, W, D) or (B, H, W, "
+                        "D) uint8 cost volume")
+    h, w, nd = cost.shape[-3:]
+    nl = _labels(nd, label_ext, nl)
+    want = (len(directions),) + tuple(cost.shape[:-1])
+    if p2e_tables.dtype != torch.int32 or tuple(p2e_tables.shape) != want:
+        raise TypeError(f"sgm_sweep_family takes {want} int32 P2' tables, "
+                        f"got {tuple(p2e_tables.shape)} {p2e_tables.dtype}")
+    if s is not None:
+        s_dtype = s.dtype
+        if s.shape != cost.shape:
+            raise ValueError(f"S shape {tuple(s.shape)} != "
+                             f"{tuple(cost.shape)}")
+    if s_dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"S dtype {s_dtype} is not int16 or int32")
+    tensors = [cost, p2e_tables] + ([s] if s is not None else [])
+    if any(t.device != cost.device for t in tensors):
+        raise ValueError("sgm_sweep_family inputs lie on different devices")
+    if cost.device.type == "cpu":
+        total = sgm_sweep_family_plain(cost, p2e_tables, directions, p1,
+                                       label_ext, nl).to(s_dtype)
+        return total if s is None else s.add_(total)
+    if cost.device.type != "cuda":
+        raise ValueError(f"sgm_sweep_family: unsupported device "
+                         f"{cost.device}")
+    if nd % 32 != 0 or nd > 256:
+        raise ValueError(f"sgm_sweep_family kernel needs D a multiple of 32 "
+                         f"up to 256, got {nd}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("sgm_sweep_family takes contiguous tensors")
+    fresh = s is None
+    if fresh:
+        s = torch.empty(cost.shape, dtype=s_dtype, device=cost.device)
+    if s.data_ptr() % 4 != 0:
+        raise ValueError("sgm_sweep_family needs S aligned to 4 bytes")
+    if s.numel() > 0:
+        b = cost.shape[0] if cost.dim() == 4 else 1
+        flat = [v for r in directions for v in r]
+        dirs = (ctypes.c_int * len(flat))(*flat)
+        fn = _build.load("sgm_sweep_family")
+        with torch.cuda.device(cost.device):
+            err = fn(cost.data_ptr(), p2e_tables.data_ptr(), s.data_ptr(),
+                     int(s_dtype == torch.int32), int(fresh), b, h, w, nd,
+                     nl, label_ext or 0, len(directions), dirs, p1,
+                     _build.stream_of(cost))
+        _build.check(err, "sgm_sweep_family")
+        _build.LAUNCHES["sgm_sweep_family"] += 1
+    return s
+
+
+def direction_groups(dirs: Sequence[Tuple[int, int]]) -> list:
+    """The family launches of aggregate_paths(fuse_families=True): the
+    directions with dy != 0, then those with dy = 0, each group in the
+    order of dirs; an empty group is left out."""
+    groups = [[r for r in dirs if r[0] != 0], [r for r in dirs if r[0] == 0]]
+    return [g for g in groups if g]
+
+
 def aggregate_paths(cost: torch.Tensor, img: torch.Tensor,
                     dirs: Sequence[Tuple[int, int]], p1: int, p2: int,
                     adaptive_p2: bool = False,
                     s_max: int | None = None,
                     label_ext: int | None = None,
-                    nl: int | None = None) -> torch.Tensor:
-    """S = sum_r L_r through sgm_sweep, one launch per direction for all
-    frames; cost's shape ((H, W, D) or (B, H, W, D), img (H, W) or
-    (B, H, W)) in plan_dtypes(s_max)."""
+                    nl: int | None = None,
+                    fuse_families: bool = False) -> torch.Tensor:
+    """S = sum_r L_r for all frames; cost's shape ((H, W, D) or
+    (B, H, W, D), img (H, W) or (B, H, W)) in plan_dtypes(s_max).  One
+    sgm_sweep launch per direction, or with fuse_families one
+    sgm_sweep_family launch per direction group (direction_groups): 2
+    launches for 8 or 16 paths.  Both give the same S bit for bit."""
+    s_dtype = plan_dtypes(s_max)
     s = None
+    if fuse_families:
+        for group in direction_groups(dirs):
+            tables = torch.stack([p2_effective(img, r, p1, p2, adaptive_p2)
+                                  for r in group])
+            s = sgm_sweep_family(cost, tables, group, p1, s=s,
+                                 s_dtype=s_dtype, label_ext=label_ext, nl=nl)
+        return s
     for r in dirs:
         s = sgm_sweep(cost, p2_effective(img, r, p1, p2, adaptive_p2), r, p1,
-                      s=s, s_dtype=plan_dtypes(s_max), label_ext=label_ext,
-                      nl=nl)
+                      s=s, s_dtype=s_dtype, label_ext=label_ext, nl=nl)
     return s
 
 
@@ -320,8 +443,17 @@ def aggregate_paths_plain(cost: torch.Tensor, img: torch.Tensor,
                           adaptive_p2: bool = False,
                           s_max: int | None = None,
                           label_ext: int | None = None,
-                          nl: int | None = None) -> torch.Tensor:
-    """aggregate_paths through sgm_sweep_plain on any device."""
-    s = sum(sgm_sweep_plain(cost, p2_effective(img, r, p1, p2, adaptive_p2),
-                            r, p1, label_ext, nl) for r in dirs)
+                          nl: int | None = None,
+                          fuse_families: bool = False) -> torch.Tensor:
+    """aggregate_paths through the plain sweeps on any device (with
+    fuse_families, sgm_sweep_family_plain per direction group)."""
+    def table(r):
+        return p2_effective(img, r, p1, p2, adaptive_p2)
+    if fuse_families:
+        s = sum(sgm_sweep_family_plain(cost, [table(r) for r in group],
+                                       group, p1, label_ext, nl)
+                for group in direction_groups(dirs))
+    else:
+        s = sum(sgm_sweep_plain(cost, table(r), r, p1, label_ext, nl)
+                for r in dirs)
     return s.to(plan_dtypes(s_max))

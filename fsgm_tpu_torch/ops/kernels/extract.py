@@ -13,6 +13,17 @@ returns five int32 planes of S's leading shape:
                    right-view WTA argmin_d S(y, x+d, d), s_invalid past W;
                    None without with_rwta
 
+Without with_rwta, K3 also replaces fsgm_tpu/ops/pallas/extract_pallas.py::
+wta_neighborhood (d*, S[d*-1], S[d*], S[d*+1] of the label-minor S, the
+"minor" extraction's first pass).  One convention differs at label edges:
+wta_neighborhood returns s_m = 0 where d* = 0 and s_p = 0 where d* = D-1,
+K3 returns BIG there; callers read s_m / s_p only on the interior.
+
+``wta_right`` (K3's right-view pass, csrc/extract.cu) replaces fsgm_tpu/
+ops/pallas/extract_tr.py::wta_right_major: the (B, H, W) int32 right-view
+WTA rho alone from one read of S, for the "minor" extraction
+(models/stereo.py, extract="minor").
+
 For column tiling (fsgm_tpu_torch/parallel/tiled.py) S may be a window
 whose column x sits at the global column gx0 + x of an image w_global
 wide: rho then also needs gx0 + x + d < w_global, and valid x - dr >=
@@ -37,6 +48,7 @@ from fsgm_tpu_torch.ops import extract as ext
 from fsgm_tpu_torch.ops.kernels import _build
 
 MAX_WIDTH = 232448 // 8  # two int32 rows of shared memory per block
+MAX_WIDTH_RIGHT = 232448 // 4  # wta_right: one int32 row
 
 
 def _w_global(w: int, gx0: int, w_global: int | None) -> int:
@@ -45,6 +57,15 @@ def _w_global(w: int, gx0: int, w_global: int | None) -> int:
     if w_global < 1 or not -(1 << 30) < gx0 < (1 << 30):
         raise ValueError(f"window gx0 {gx0}, w_global {w_global}")
     return w_global
+
+
+def _check_s(s: torch.Tensor, s_invalid: int, name: str) -> None:
+    if s.dtype not in (torch.int16, torch.int32) or s.dim() not in (3, 4):
+        raise TypeError(f"{name} takes an (H, W, D) or (B, H, W, D) "
+                        f"int16/int32 S")
+    if not 0 < s.shape[-1] <= 256 or not 0 <= s_invalid < (1 << 22):
+        raise ValueError(f"{name} packs (S << 8) | d: needs D <= 256 and "
+                         f"s_invalid < 2^22")
 
 
 def extract_stereo_plain(s: torch.Tensor, s_invalid: int, max_diff: int = 1,
@@ -73,13 +94,8 @@ def extract_stereo(s: torch.Tensor, s_invalid: int, max_diff: int = 1,
     valid), each int32 of S's leading shape (valid None without
     with_rwta); gx0 / w_global place S's columns in a wider image (module
     docstring).  One kernel launch covers all B frames."""
-    if s.dtype not in (torch.int16, torch.int32) or s.dim() not in (3, 4):
-        raise TypeError("extract_stereo takes an (H, W, D) or (B, H, W, D) "
-                        "int16/int32 S")
+    _check_s(s, s_invalid, "extract_stereo")
     h, w, nd = s.shape[-3:]
-    if not 0 < nd <= 256 or not 0 <= s_invalid < (1 << 22):
-        raise ValueError("extract_stereo packs (S << 8) | d: needs D <= 256 "
-                         "and s_invalid < 2^22")
     w_global = _w_global(w, gx0, w_global)
     if s.device.type == "cpu":
         return extract_stereo_plain(s, s_invalid, max_diff, with_sub,
@@ -96,7 +112,7 @@ def extract_stereo(s: torch.Tensor, s_invalid: int, max_diff: int = 1,
         ptrs = [o.data_ptr() for o in outs]
         ptrs += [ptrs[0]] * (5 - len(ptrs))  # never written without rwta
         b = s.shape[0] if s.dim() == 4 else 1
-        fn = _build.load("extract")
+        fn = _build.load("extract_stereo")
         with torch.cuda.device(s.device):
             err = fn(s.data_ptr(), int(s.dtype == torch.int32), *ptrs, b, h,
                      w, nd, s_invalid, max_diff, int(with_sub),
@@ -104,6 +120,39 @@ def extract_stereo(s: torch.Tensor, s_invalid: int, max_diff: int = 1,
         _build.check(err, "extract_stereo")
         _build.LAUNCHES["extract_stereo"] += 1
     return tuple(outs) + (() if with_rwta else (None,))
+
+
+def wta_right_plain(s: torch.Tensor, s_invalid: int) -> torch.Tensor:
+    """Plain PyTorch version: ops/extract.py's index-arithmetic diagonal
+    gather, wta_right_from_s."""
+    return ext.wta_right_from_s(s, s_invalid)
+
+
+def wta_right(s: torch.Tensor, s_invalid: int) -> torch.Tensor:
+    """(H, W, D) or (B, H, W, D) int16/int32 S -> int32 rho of S's leading
+    shape: argmin_d S(y, x + d, d), s_invalid where x + d >= W, smallest d
+    on ties.  One kernel launch covers all B frames."""
+    _check_s(s, s_invalid, "wta_right")
+    h, w, nd = s.shape[-3:]
+    if s.device.type == "cpu":
+        return wta_right_plain(s, s_invalid)
+    if s.device.type != "cuda":
+        raise ValueError(f"wta_right: unsupported device {s.device}")
+    if nd % 32 != 0 or w > MAX_WIDTH_RIGHT or not s.is_contiguous():
+        raise ValueError(f"wta_right kernel needs a contiguous S with D a "
+                         f"multiple of 32 and W <= {MAX_WIDTH_RIGHT}, got "
+                         f"{tuple(s.shape)}")
+    rho = torch.empty(s.shape[:-1], dtype=torch.int32, device=s.device)
+    if s.numel() > 0:
+        b = s.shape[0] if s.dim() == 4 else 1
+        fn = _build.load("wta_right")
+        with torch.cuda.device(s.device):
+            err = fn(s.data_ptr(), int(s.dtype == torch.int32),
+                     rho.data_ptr(), b, h, w, nd, s_invalid,
+                     _build.stream_of(s))
+        _build.check(err, "wta_right")
+        _build.LAUNCHES["wta_right"] += 1
+    return rho
 
 
 def extract_flow_plain(s: torch.Tensor, nl: int, label_ext: int,

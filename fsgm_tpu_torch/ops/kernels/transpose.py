@@ -38,7 +38,7 @@ def label_minor_from_major(vol: torch.Tensor) -> torch.Tensor:
     out = torch.empty((h, w, nl), dtype=torch.uint8, device=vol.device)
     if out.numel() == 0:
         return out
-    fn = _build.load("transpose")
+    fn = _build.load("label_minor_from_major")
     with torch.cuda.device(vol.device):
         err = fn(vol.data_ptr(), out.data_ptr(), h, nl, w,
                  _build.stream_of(vol))
