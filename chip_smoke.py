@@ -7,10 +7,11 @@ flow (configs/kitti_flow.json, 375x1242, 4 levels, 81 labels), batched
 stereo (stereo_sgm_batch, 16 frames of config 2 in one pass), tiled stereo
 (stereo_sgm_sharded at config 5, configs/tiled_4k.json: 2 frames of
 2160x3840, D=128, 2 frame shards x 4 row tiles, fast mode) and tiled flow
-(flow_fsgm_sharded, config 4 at 4K with 5 levels, 3 row tiles), and two variants: stereo_sgm with extract="minor" and
-fuse_families=True (config 2) and flow_fsgm with fuse_families=True
-(config 4).  Phases,
-each of which raises on failure (non-zero exit, no ok line):
+(flow_fsgm_sharded, config 4 at 4K with 5 levels, 3 row tiles).  K2 runs
+as aggregate_paths chooses on the card: one family launch per direction
+group (sgm_sweep_family) for one KITTI frame and every flow level, one
+launch per direction (sgm_sweep) for 16 frames and on the tiled paths.
+Phases, each of which raises on failure (non-zero exit, no ok line):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the kernels from fsgm_tpu_torch/csrc, one nvcc per source (six
@@ -77,21 +78,22 @@ each of which raises on failure (non-zero exit, no ok line):
      of K2 with carry on the config-5 tile (and of its two horizontal
      directions on one frame of it, held to their plain versions) and of
      K3 on a KITTI window;
-  9. the variants: (a) K2's family launch (sgm_sweep_family) against its
-     plain version, exact: both direction groups at KITTI for 1 and 16
-     frames (int16 S), at 37x53, 16 paths, adaptive, int32 S, on the
-     config-4 level-0 flow shape (81 labels in 96), and the down family
-     added into an existing S (tools/trexp.py's kernel); K3's right-view
-     pass (wta_right) and K3 without it at KITTI, wta_right at
-     tools/strideroll_probe.py's shape (376x1280x128 int32); K1 with 9x7
-     census; the min16_probe forms against torch.minimum; (b) stereo_sgm
-     with extract="minor" and fuse_families=True equal to the default bit
-     for bit at config 2 (the stereo variants path: launches counted; and
-     B=16 through stereo_sgm_batch) and at config 1 (B=16), and flow_fsgm
-     with fuse_families=True equal to the default at config 4 (the fused
-     flow path: launches counted); (c) CUDA-event ms of each new kernel
-     beside its plain version and bound (and the per-direction launches it
-     replaces), and ms per frame of both variants of both paths.
+  9. (a) K2's family launch (sgm_sweep_family) against its plain
+     version, exact: both direction groups at KITTI for 1 and 16 frames
+     (int16 S), at 37x53, 16 paths, adaptive, int32 S, on the config-4
+     level-0 flow shape (81 labels in 96), and the down family added into
+     an existing S (tools/trexp.py's kernel); K3's right-view pass
+     (wta_right) and K3 without it at KITTI and frame by frame over the
+     S of 16 KITTI frames, wta_right at tools/strideroll_probe.py's shape
+     (376x1280x128 int32); K1 with 9x7 census; the min16_probe forms
+     against torch.minimum; (b) aggregate_paths' K2 choice against the
+     other one forced, bit for bit, with both calls' launches counted and
+     timed per frame: stereo_sgm_batch at config 2 with 1 frame (family
+     launches) and 16 (per-direction launches), at config 1 with 16, and
+     flow_fsgm at config 4 (family launches); (c) CUDA-event ms of each new
+     kernel beside its plain version and bound, the family launches beside
+     the per-direction launches they replace (each count read from one
+     call), also over 2 to 8 KITTI frames around the choice's threshold.
 
 Each kernel's bound_ms is the larger of two times for this run's shapes:
 the bytes it must move (each input read once, each output written once;
@@ -118,6 +120,7 @@ The last lines are the per-kernel JSON record, the card line, and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -146,37 +149,35 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 # kernel name: (csrc source, TPU kernel it replaces, the others, main
 # paths); the kernels line's `launches` is the first path's count,
-# launches_by_path all.  min16_probe is on no path: only phase 9 runs it.
+# launches_by_path all.  K2 is sgm_sweep_family on one KITTI frame and on
+# flow (aggregate_paths: family_launch_pays on one H100), sgm_sweep on 16
+# frames and on the tiled paths.  wta_right and min16_probe are on no path:
+# only phase 9 runs them.
 SOURCES = {
     "census_cost": ("cost", "fsgm_tpu/ops/pallas/cost_tr.py:106",
                     ["fsgm_tpu/ops/pallas/cost_tr.py:264",
                      "fsgm_tpu/ops/pallas/cost_tr.py:158",
                      "fsgm_tpu/ops/pallas/cost_pallas.py:56"],
-                    ("stereo", "stereo_batch", "stereo_tiled",
-                     "stereo_variants")),
+                    ("stereo", "stereo_batch", "stereo_tiled")),
     "sgm_sweep": ("sgm_sweep", "fsgm_tpu/ops/pallas/aggregate_tr.py:289",
                   ["fsgm_tpu/ops/pallas/aggregate_pallas.py:297",
                    "fsgm_tpu/ops/pallas/aggregate_pallas.py:420"],
-                  ("stereo", "flow", "stereo_batch", "stereo_tiled",
-                   "flow_tiled")),
+                  ("stereo_batch", "stereo_tiled", "flow_tiled")),
     "sgm_sweep_family": ("sgm_sweep",
                          "fsgm_tpu/ops/pallas/aggregate_tr.py:451",
-                         ["tools/trexp.py:102"],
-                         ("stereo_variants", "flow_fused")),
+                         ["tools/trexp.py:102"], ("stereo", "flow")),
     "extract_stereo": ("extract", "fsgm_tpu/ops/pallas/extract_tr.py:227",
                        ["fsgm_tpu/ops/pallas/extract_pallas.py:82"],
-                       ("stereo", "stereo_batch", "stereo_tiled",
-                        "stereo_variants")),
+                       ("stereo", "stereo_batch", "stereo_tiled")),
     "wta_right": ("extract", "fsgm_tpu/ops/pallas/extract_tr.py:299",
                   ["tools/strideroll_probe.py:34",
                    "tools/strideroll_probe.py:59",
-                   "tests/unit/test_property.py:142"],
-                  ("stereo_variants",)),
+                   "tests/unit/test_property.py:142"], ()),
     "extract_flow": ("extract_flow", "fsgm_tpu/ops/pallas/extract_tr.py:387",
-                     None, ("flow", "flow_tiled", "flow_fused")),
+                     None, ("flow", "flow_tiled")),
     "label_minor_from_major": (
         "transpose", "fsgm_tpu/ops/pallas/transpose_pallas.py:83", None,
-        ("flow", "flow_tiled", "flow_fused")),
+        ("flow", "flow_tiled")),
     "min16_probe": ("min16_probe", "tools/tr_int16_probe.py:41", None, ()),
 }
 PROBE_SHAPE = (376, 1280, 128)  # tools/strideroll_probe.py's H, W, L
@@ -312,7 +313,9 @@ def check_kernels(shape, params, dev, dirs, tag: str) -> dict:
                                       params.adaptive_p2, params.s_invalid)
     e = max_err(s, s_ref)
     require(s.dtype == s_ref.dtype and e == 0, f"{tag} S != plain")
-    errs["sgm_sweep"] = max(sweep_err, e)
+    errs["sgm_sweep"] = sweep_err
+    k2 = k2_kernel(1, h, w, dirs, dev)  # the kernel that built S
+    errs[k2] = max(errs.get(k2, 0), e)
 
     got = extract.extract_stereo(s, params.s_invalid, params.lr_max_diff,
                                  params.subpixel)
@@ -376,8 +379,8 @@ def check_batch_kernels(shape, b, params, dev, tag: str) -> dict:
                                       params.p2, params.adaptive_p2,
                                       params.s_invalid)
     require(s.dtype == s_ref.dtype, f"{tag} batched S dtype")
-    k2 = max(k2, max_err(s, s_ref))
-    require(k2 == 0, f"{tag} batched S != plain")
+    k2_sum = max_err(s, s_ref)
+    require(k2_sum == 0, f"{tag} batched S != plain")
     del c, s_ref
     k3 = 0
     for with_rwta in (True, False):
@@ -392,6 +395,8 @@ def check_batch_kernels(shape, b, params, dev, tag: str) -> dict:
                          if a is not None])
     require(k3 == 0, f"{tag} batched extract_stereo != plain")
     errs = {"census_cost": k1, "sgm_sweep": k2, "extract_stereo": k3}
+    k2 = k2_kernel(b, h, w, params.dirs, dev)  # the kernel that built S
+    errs[k2] = max(errs.get(k2, 0), k2_sum)
     print(f"{tag} batched kernels == plain ({b} frames, S {s.dtype}): "
           f"{errs}")
     return errs
@@ -411,7 +416,7 @@ def check_batch_path(shape, b, params, dev, tag: str) -> dict:
     launches = dict(_build.LAUNCHES)
     print(f"launches in one stereo_sgm_batch call ({tag}, {b} frames): "
           f"{launches}")
-    want = {"census_cost": 1, "sgm_sweep": len(params.dirs),
+    want = {"census_cost": 1, **k2_launches(b, h, w, params.dirs, dev),
             "extract_stereo": 1}
     require(launches == want, f"{tag} batch launches {launches} != {want}")
     require(tuple(disp.shape) == (b, h, w) and disp.dtype == torch.float32
@@ -1029,6 +1034,46 @@ def time_tiled(params, dev, card_line: str) -> dict:
                 window=window_row)
 
 
+def k2_kernel(frames, h, w, dirs, dev) -> str:
+    """The K2 kernel that aggregate_paths launches for frames x H x W on
+    dev's card: sgm_sweep_family where family_launch_pays, else
+    sgm_sweep."""
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    fused = agg.family_launch_pays(frames, h, w, dirs,
+                                   agg.resident_warps(dev))
+    return "sgm_sweep_family" if fused else "sgm_sweep"
+
+
+def k2_launches(frames, h, w, dirs, dev) -> dict:
+    """{kernel: launches} of one aggregate_paths call (k2_kernel)."""
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    name = k2_kernel(frames, h, w, dirs, dev)
+    return {name: len(agg.direction_groups(dirs))
+            if name == "sgm_sweep_family" else len(dirs)}
+
+
+@contextlib.contextmanager
+def k2_forced(fuse: bool):
+    """aggregate_paths with its K2 choice forced, whatever the card: family
+    launches (fuse) or one launch per direction."""
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    keep = agg.resident_warps
+    agg.resident_warps = lambda device: (1 << 40) if fuse else 0
+    try:
+        yield
+    finally:
+        agg.resident_warps = keep
+
+
+def counted(fn):
+    """(fn()'s result, {kernel: launches} of that call alone)."""
+    from fsgm_tpu_torch.ops.kernels import _build
+    _build.LAUNCHES.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_build.LAUNCHES)
+
+
 def family_case(cost, img, dirs, p1, p2, adaptive, s_max, tag,
                 label_ext=None, nl=None) -> int:
     """9(a): K2's family launches over the direction groups of dirs (the
@@ -1051,8 +1096,9 @@ def family_case(cost, img, dirs, p1, p2, adaptive, s_max, tag,
         worst = max(worst, max_err(s, want))
         require(worst == 0, f"{tag}: family launch {group} != plain")
     del want
-    per_dir = agg.aggregate_paths(cost, img, dirs, p1, p2, adaptive, s_max,
-                                  label_ext, nl)
+    with k2_forced(False):
+        per_dir = agg.aggregate_paths(cost, img, dirs, p1, p2, adaptive,
+                                      s_max, label_ext, nl)
     require(s.dtype == per_dir.dtype and torch.equal(s, per_dir),
             f"{tag}: family S != the per-direction launches' S")
     print(f"{tag}: {len(groups)} K2 family launches == plain and == the "
@@ -1147,7 +1193,30 @@ def check_variant_kernels(params, fparams, dev) -> dict:
                           params.invalid_cost)
     k2 = max(k2, family_case(bc, bl, params.dirs, s_max=params.s_invalid,
                              tag=f"KITTI {BATCH} frames", **kw))
+    # K3's right-view pass and K3 without it over the 16 frames' S, held
+    # frame by frame to their plain versions
+    bs = agg.aggregate_paths(bc, bl, params.dirs, params.p1, params.p2,
+                             params.adaptive_p2, params.s_invalid)
     del bl, br, bc
+    rho = extract.wta_right(bs, params.s_invalid)
+    left = extract.extract_stereo(bs, params.s_invalid, params.lr_max_diff,
+                                  params.subpixel, with_rwta=False)
+    require(left[4] is None, "K3 without rwta gave a validity plane")
+    for k in range(BATCH):
+        k3 = max(k3, max_err(rho[k], extract.wta_right_plain(
+            bs[k], params.s_invalid)))
+        want = extract.extract_stereo_plain(bs[k], params.s_invalid,
+                                            params.lr_max_diff,
+                                            params.subpixel, with_rwta=False)
+        k3_left = max([k3_left] + [max_err(x[k], y)
+                                   for x, y in zip(left[:4], want[:4])])
+    require(k3 == 0 and k3_left == 0,
+            f"{BATCH}-frame wta_right {k3} / K3 without rwta {k3_left} != "
+            f"plain")
+    print(f"KITTI {BATCH} frames ({bs.dtype} S): wta_right and K3 without "
+          f"the right-view pass == plain frame by frame, max_abs_err {k3}, "
+          f"{k3_left}")
+    del bs, rho, left, want
     torch.cuda.empty_cache()
     sl, sr = frame_stack(*SMALL, 2, SEED, dev, bleed=True)
     sc = cost.census_cost(census_transform(sl), census_transform(sr),
@@ -1180,65 +1249,66 @@ def check_variant_kernels(params, fparams, dev) -> dict:
             "census_cost": k1, "min16_probe": k16}
 
 
-def check_variant_paths(params, tparams, fparams, f1, f2, dev,
-                        launches: dict) -> None:
-    """9(b): stereo_sgm(extract="minor", fuse_families=True) and
-    stereo_sgm_batch with both at configs 2 and 1, and flow_fsgm with
-    fuse_families=True at config 4, each equal to its default bit for bit;
-    the variant paths' launches (counted in that call only) go into
-    launches["stereo_variants"] and launches["flow_fused"]."""
-    from fsgm_tpu_torch import flow_fsgm, stereo_sgm, stereo_sgm_batch
-    from fsgm_tpu_torch.ops.kernels import _build
+def check_family_choice(params, tparams, fparams, f1, f2, dev,
+                        card_line: str) -> dict:
+    """9(b): each path with aggregate_paths' own K2 choice and with the
+    other one forced (k2_forced), equal bit for bit, the K2 launches of
+    both calls counted, and CUDA-event ms per frame of both: stereo at
+    config 2 with 1 frame (family launches on one H100) and with 16
+    (per-direction launches), config 1 with 16 frames, and flow at config
+    4 (family launches on every level).  Returns {cell: record}."""
+    from fsgm_tpu_torch import flow_fsgm, stereo_sgm_batch
 
     h, w, d = KITTI
-    tl, tr, _ = pair(h, w, d, SEED, dev)
-    want = stereo_sgm(tl, tr, params)
-    _build.LAUNCHES.clear()
-    got = stereo_sgm(tl, tr, params, extract="minor", fuse_families=True)
-    torch.cuda.synchronize()
-    launches["stereo_variants"] = dict(_build.LAUNCHES)
-    print(f"launches in one stereo_sgm(extract=\"minor\", "
-          f"fuse_families=True) call: {launches['stereo_variants']}")
-    require(launches["stereo_variants"] == {
-        "census_cost": 1, "sgm_sweep_family": 2, "extract_stereo": 1,
-        "wta_right": 1}, "stereo variants launches")
-    require(launches["stereo"].get("sgm_sweep") == len(params.dirs),
-            "stereo K2 launches")
-    require(torch.equal(got, want), "config 2 minor + fused != default")
-    for tag, p, shape in (("config 2", params, KITTI),
-                          ("config 1", tparams, TSUKUBA)):
-        bl, br = frame_stack(*shape, BATCH, SEED, dev)
-        require(torch.equal(stereo_sgm_batch(bl, br, p, "minor", True),
-                            stereo_sgm_batch(bl, br, p)),
-                f"{tag} B={BATCH} minor + fused != default")
-        del bl, br
-    print(f"stereo_sgm(extract=\"minor\", fuse_families=True) == default "
-          f"bit for bit at config 2 (1 frame; K2 launches 2 against "
-          f"{launches['stereo']['sgm_sweep']}) and through stereo_sgm_batch "
-          f"at configs 2 and 1 with {BATCH} frames")
-    want = flow_fsgm(f1, f2, fparams)
-    _build.LAUNCHES.clear()
-    got = flow_fsgm(f1, f2, fparams, fuse_families=True)
-    torch.cuda.synchronize()
-    launches["flow_fused"] = dict(_build.LAUNCHES)
-    print(f"launches in one flow_fsgm(fuse_families=True) call: "
-          f"{launches['flow_fused']}")
-    n_calls = launches["flow"]["extract_flow"]  # level calls of one frame
-    require(launches["flow_fused"].get("sgm_sweep_family") == 2 * n_calls
-            and "sgm_sweep" not in launches["flow_fused"]
-            and launches["flow"].get("sgm_sweep") == 8 * n_calls,
-            "flow fused K2 launches")
-    require(all(torch.equal(a, b) for a, b in zip(got, want)),
-            "config 4 fused != default")
-    print(f"flow_fsgm(fuse_families=True) == default bit for bit at config "
-          f"4 (K2 launches {2 * n_calls} against {8 * n_calls})")
+    bl, br = frame_stack(h, w, d, BATCH, SEED, dev)
+    tl, tr = frame_stack(*TSUKUBA, BATCH, SEED, dev)
+    one_l, one_r = bl[:1].contiguous(), br[:1].contiguous()
+    cells = {
+        "stereo config 2 B=1": (
+            lambda: stereo_sgm_batch(one_l, one_r, params), 1, True),
+        f"stereo config 2 B={BATCH}": (
+            lambda: stereo_sgm_batch(bl, br, params), BATCH, False),
+        f"stereo config 1 B={BATCH}": (
+            lambda: stereo_sgm_batch(tl, tr, tparams), BATCH, None),
+        "flow config 4": (lambda: flow_fsgm(f1, f2, fparams), 1, True)}
+    out = {}
+    for tag, (fn, frames, expect) in cells.items():
+        got, launches = counted(fn)
+        fused = "sgm_sweep_family" in launches
+        require("sgm_sweep" not in launches or not fused,
+                f"{tag}: both K2 kernels launched")
+        require(expect is None or fused == expect,
+                f"{tag}: aggregate_paths chose "
+                f"{'family' if fused else 'per-direction'} launches")
+        with k2_forced(not fused):
+            other, other_launches = counted(fn)
+            other_ms = median_ms(fn, reps=5) / frames
+        same = (all(torch.equal(a, b) for a, b in zip(got, other))
+                if isinstance(got, tuple) else torch.equal(got, other))
+        require(same, f"{tag}: family launches != per-direction launches")
+        k2 = launches.get("sgm_sweep_family", launches.get("sgm_sweep"))
+        k2_other = other_launches.get("sgm_sweep_family",
+                                      other_launches.get("sgm_sweep"))
+        # 8 paths: 8 launches per aggregate_paths call against 2
+        require(4 * (k2 if fused else k2_other) == (k2_other if fused
+                                                    else k2),
+                f"{tag}: K2 launches {launches} / {other_launches}")
+        out[tag] = dict(frames=frames, family=fused, launches=launches,
+                        ms=median_ms(fn, reps=5) / frames,
+                        other_launches=other_launches, other_ms=other_ms)
+        print(f"{tag}: aggregate_paths takes "
+              f"{'family' if fused else 'per-direction'} launches (K2 "
+              f"launches {k2} against {k2_other} the other way), == the "
+              f"other way bit for bit; {out[tag]['ms']:.4f} against "
+              f"{other_ms:.4f} ms per frame ({card_line})")
+    return out
 
 
-def time_variants(params, fparams, f1, f2, dev, card_line: str) -> dict:
+def time_family(params, fparams, dev, card_line: str) -> dict:
     """9(c): CUDA-event ms of the new kernels beside their plain versions,
-    bounds and the per-direction launches, and ms per frame of both
-    variants of both paths."""
-    from fsgm_tpu_torch import flow_fsgm, stereo_sgm, stereo_sgm_batch
+    bounds and the per-direction launches (launches counted in one call
+    each), and K2's family and per-direction launches over 2 to 8 KITTI
+    frames, around the threshold of family_launch_pays."""
     from fsgm_tpu_torch.ops.census import census_transform
     from fsgm_tpu_torch.ops.kernels import aggregate as agg
     from fsgm_tpu_torch.ops.kernels import cost, extract, probe, transpose
@@ -1247,13 +1317,16 @@ def time_variants(params, fparams, f1, f2, dev, card_line: str) -> dict:
     kw = dict(p1=params.p1, p2=params.p2, adaptive=params.adaptive_p2)
     s_dtype = agg.plan_dtypes(params.s_invalid)
     s_bytes = torch.tensor([], dtype=s_dtype).element_size()
-    n_dirs, hw = len(params.dirs), h * w
+    hw = h * w
     rows = {}
 
-    def k2_row(c, groups, p1, nl, frames, s_dt, label_ext=None, ops=8):
-        """The family launches over prebuilt tables, the per-direction
-        launches over the same tables and the plain version."""
+    def k2_pair(c, groups, p1, nl, s_dt, label_ext=None):
+        """The family launches and the per-direction launches over the
+        same prebuilt tables."""
         flat = [(r, t[i]) for g, t in groups for i, r in enumerate(g)]
+
+        def family():
+            return family_sweeps(c, groups, p1, s_dt, label_ext, nl)
 
         def per_direction():
             s = None
@@ -1261,17 +1334,21 @@ def time_variants(params, fparams, f1, f2, dev, card_line: str) -> dict:
                 s = agg.sgm_sweep(c, p2e, r, p1, s=s, s_dtype=s_dt,
                                   label_ext=label_ext, nl=nl)
             return s
+        return family, per_direction, len(flat)
 
+    def k2_row(c, groups, p1, nl, frames, s_dt, label_ext=None, ops=8):
+        family, per_direction, n = k2_pair(c, groups, p1, nl, s_dt,
+                                           label_ext)
         fhw = frames * c.shape[-3] * c.shape[-2]
         eb = torch.tensor([], dtype=s_dt).element_size()
-        b_ms, b_by = bound(fhw * nl + len(flat) * fhw * 4 + fhw * nl * eb,
-                           ops * len(flat) * fhw * nl)
+        b_ms, b_by = bound(fhw * nl + n * fhw * 4 + fhw * nl * eb,
+                           ops * n * fhw * nl)
+        _, fam_launches = counted(family)
+        _, dir_launches = counted(per_direction)
         return dict(
-            frames=frames, launches=len(groups),
-            ms=median_ms(lambda: family_sweeps(c, groups, p1, s_dt,
-                                               label_ext, nl)),
-            per_direction_ms=median_ms(per_direction),
-            per_direction_launches=len(flat),
+            frames=frames, launches=fam_launches["sgm_sweep_family"],
+            ms=median_ms(family), per_direction_ms=median_ms(per_direction),
+            per_direction_launches=dir_launches["sgm_sweep"],
             plain_ms=median_ms(lambda: family_sweeps(
                 c, groups, p1, s_dt, label_ext, nl, plain=True), reps=1,
                 warmup=0),
@@ -1293,8 +1370,10 @@ def time_variants(params, fparams, f1, f2, dev, card_line: str) -> dict:
     b_ms, b_by = bound(hw * d + len(down) * hw * 4 + 2 * hw * d * s_bytes,
                        8 * len(down) * hw * d)
     # each call adds at most 3 * 355 to S, which stays below 2^15
+    _, into_launches = counted(lambda: agg.sgm_sweep_family(
+        c, tables, down, params.p1, s=s_into))
     rows["into_s"] = dict(
-        directions=down, launches=1,
+        directions=down, launches=into_launches["sgm_sweep_family"],
         ms=median_ms(lambda: agg.sgm_sweep_family(c, tables, down, params.p1,
                                                   s=s_into)),
         plain_ms=median_ms(lambda: agg.sgm_sweep_family_plain(
@@ -1336,7 +1415,21 @@ def time_variants(params, fparams, f1, f2, dev, card_line: str) -> dict:
                           params.invalid_cost)
     rows["family_batch"] = k2_row(bc, group_tables(bl, params.dirs, **kw),
                                   params.p1, d, BATCH, s_dtype)
-    del bc
+    warps = agg.resident_warps(dev)
+    by_frames = {}
+    for b in (2, 3, 4, 6, 8):
+        family, per_direction, _ = k2_pair(
+            bc[:b], group_tables(bl[:b], params.dirs, **kw), params.p1, d,
+            s_dtype)
+        by_frames[b] = dict(
+            family_chosen=agg.family_launch_pays(b, h, w, params.dirs,
+                                                 warps),
+            ms=median_ms(family), per_direction_ms=median_ms(per_direction))
+    rows["family_batch"]["by_frames"] = by_frames
+    print(f"K2 over B KITTI frames, family against per-direction launches "
+          f"(resident warps {warps}): {json.dumps(by_frames)} "
+          f"({card_line})")
+    del bc, bl, br
     torch.cuda.empty_cache()
     lv = flow_level(FLOW_HW, fparams, dev)
     fc = transpose.label_minor_from_major(lv.pop("cost_m"))
@@ -1374,23 +1467,6 @@ def time_variants(params, fparams, f1, f2, dev, card_line: str) -> dict:
     print(f"time min16_probe on {MIN16_N} values: "
           f"{json.dumps(forms)}; torch.minimum int16 {lib16:.4f} ms, int32 "
           f"{lib32:.4f} ms ({card_line})")
-    del a32, b32, a16, b16
-
-    e2e = {"stereo": median_ms(lambda: stereo_sgm(tl, tr, params)),
-           "stereo_variants": median_ms(lambda: stereo_sgm(
-               tl, tr, params, extract="minor", fuse_families=True))}
-    e2e.update({
-        "stereo_batch": median_ms(lambda: stereo_sgm_batch(bl, br, params),
-                                  reps=5) / BATCH,
-        "stereo_batch_variants": median_ms(lambda: stereo_sgm_batch(
-            bl, br, params, "minor", True), reps=5) / BATCH,
-        "flow": median_ms(lambda: flow_fsgm(f1, f2, fparams), reps=5),
-        "flow_fused": median_ms(lambda: flow_fsgm(f1, f2, fparams,
-                                                  fuse_families=True),
-                                reps=5)})
-    print(f"variants ms per frame (stereo config 2 at B=1 and B={BATCH}, "
-          f"flow config 4): {json.dumps(e2e)} ({card_line})")
-    rows["e2e"] = e2e
     return rows
 
 
@@ -1398,10 +1474,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from fsgm_tpu_torch import (DIRS_16, FlowParams, SGMParams, flow_fsgm,
-                                flow_fsgm_batch, flow_fsgm_reference,
-                                load_preset, stereo_sgm, stereo_sgm_batch,
-                                stereo_sgm_reference)
+    from fsgm_tpu_torch import (DIRS_8, DIRS_16, FlowParams, SGMParams,
+                                flow_fsgm, flow_fsgm_batch,
+                                flow_fsgm_reference, load_preset, stereo_sgm,
+                                stereo_sgm_batch, stereo_sgm_reference)
     from fsgm_tpu_torch.eval import d1_all, fl_all
     from fsgm_tpu_torch.ops.census import census_transform
     from fsgm_tpu_torch.ops.cost import cost_volume_flow_major
@@ -1459,6 +1535,9 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {"stereo": dict(_build.LAUNCHES)}
     print(f"launches in one stereo_sgm call: {launches['stereo']}")
+    want = {"census_cost": 1, **k2_launches(1, h, w, params.dirs, dev),
+            "extract_stereo": 1}
+    require(launches["stereo"] == want, f"stereo launches != {want}")
     ref = stereo_sgm_reference(tl, tr, params)
     require(tuple(disp.shape) == (h, w) and bool(torch.isfinite(disp).all()),
             "disparity shape / finiteness")
@@ -1479,6 +1558,11 @@ def main() -> int:
     torch.cuda.synchronize()
     launches["flow"] = dict(_build.LAUNCHES)
     print(f"launches in one flow_fsgm call: {launches['flow']}")
+    level_calls = launches["flow"].get("extract_flow", 0)
+    want = {k: n * level_calls for k, n in k2_launches(
+        1, fh, fw, DIRS_8, dev).items()}  # level 0 has the most lines
+    require({k: launches["flow"].get(k) for k in want} == want
+            and len(launches["flow"]) == 3, f"flow K2 launches != {want}")
     fref, fref_valid = flow_fsgm_reference(f1, f2, fparams)
     require(tuple(flow.shape) == (fh, fw, 2) and flow.dtype == torch.float32
             and bool(torch.isfinite(flow).all()), "flow shape / finiteness")
@@ -1694,13 +1778,14 @@ def main() -> int:
     errs = merge_errs(errs, check_uhd_flow_tile(dev))
     tiled_times = time_tiled(params, dev, card_line)
 
-    # 9. the variants: the family launch, wta_right, K3 without the
-    #    right-view pass, K1 with 9x7 census, min16_probe; the variant paths
-    #    end to end; timings
+    # 9. the family launch, wta_right, K3 without the right-view pass, K1
+    #    with 9x7 census, min16_probe; aggregate_paths' K2 choice against
+    #    the other one end to end; timings
     t9 = time.perf_counter()
     errs = merge_errs(errs, check_variant_kernels(params, fparams, dev))
-    check_variant_paths(params, tparams, fparams, f1, f2, dev, launches)
-    vtimes = time_variants(params, fparams, f1, f2, dev, card_line)
+    choice = check_family_choice(params, tparams, fparams, f1, f2, dev,
+                                 card_line)
+    vtimes = time_family(params, fparams, dev, card_line)
     print(f"phase 9: {time.perf_counter() - t9:.2f} s")
     times["sgm_sweep_family"] = {k: vtimes["family"][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -1737,9 +1822,11 @@ def main() -> int:
             row["batch"] = btimes[name]
         if name == "sgm_sweep_family":  # the row's times: a KITTI frame
             row.update(per_direction_ms=vtimes["family"]["per_direction_ms"],
+                       per_direction_launches=vtimes["family"][
+                           "per_direction_launches"],
                        batch=vtimes["family_batch"],
                        label_2d=vtimes["family_2d"],
-                       into_s=vtimes["into_s"])
+                       into_s=vtimes["into_s"], choice=choice)
         if name == "wta_right":  # the row's times: a KITTI frame, int16 S
             row["probe_shape"] = vtimes["wta_right_probe"]
         if name == "min16_probe":  # the row's times: the packed form

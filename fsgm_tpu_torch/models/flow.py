@@ -4,8 +4,9 @@ Counterpart of fsgm_tpu/models/flow.py (``flow_fsgm``, ``flow_fsgm_batch``,
 ``flow_sequence``).  Per pyramid level, coarsest first:
 
     census (plain torch) -> label-major flow cost (plain torch, ops/cost.py)
-    -> K5 label_minor_from_major -> K2 sgm_sweep x 8 with the 2D label
-    rule -> K4 extract_flow -> parabola, base + offset and median (plain
+    -> K5 label_minor_from_major -> K2 over 8 directions with the 2D
+    label rule (aggregate_paths: on one H100 every level of a KITTI frame
+    takes two family launches) -> K4 extract_flow -> parabola, base + offset and median (plain
     torch)
 
 over the (2w+1)^2 label window centred on the 2x-upsampled coarser flow.
@@ -15,13 +16,6 @@ check, its backward-pass modes (``fb_backward`` full / cheap / single /
 half) and grids (``fb_grid`` full / half), and the temporal prior follow
 the JAX package exactly; the forward and backward passes of a level run one
 after the other.
-
-``fuse_families=True`` on every entry (JAX: FSGM_TR_DUAL=1, which
-fsgm_tpu/models/flow.py reaches through aggregate_paths_tr) sweeps each
-level's 8 directions in two K2 family launches (dy != 0, dy = 0) instead of
-eight (ops/kernels/aggregate.py::sgm_sweep_family); the flow is the same
-bit for bit.  The tiled entries (fsgm_tpu_torch/parallel/) keep one launch
-per direction, as the JAX tiled path does.
 
 The device is the inputs' device: CUDA tensors launch the kernels, CPU
 tensors run their plain versions.  ``flow_fsgm_reference`` composes only
@@ -137,7 +131,7 @@ def fb_check(flow_fwd: torch.Tensor, flow_bwd: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def _level_s(img1, cen1, cen2, base_u, base_v, params: FlowParams,
-             plain: bool, fuse_families: bool = False) -> torch.Tensor:
+             plain: bool) -> torch.Tensor:
     """Cost volume + 8-path 2D-label aggregation of one level: (H, W, D)
     S, D = nl (plain) or nl padded to a multiple of 32 (kernels)."""
     e, r = params.window_extent, params.search_radius
@@ -148,14 +142,14 @@ def _level_s(img1, cen1, cen2, base_u, base_v, params: FlowParams,
                                 params.invalid_cost)
         return aggregate.aggregate_paths_plain(
             cost, img1, DIRS_8, params.p1, params.p2, params.adaptive_p2,
-            s_max=s_max, label_ext=e, fuse_families=fuse_families)
+            s_max=s_max, label_ext=e)
     cost_m = cost_volume_flow_major(cen1, cen2, base_u, base_v, r,
                                     params.invalid_cost,
                                     nl_pad=-(-nl // 32) * 32)
     cost = transpose.label_minor_from_major(cost_m)
     return aggregate.aggregate_paths(
         cost, img1, DIRS_8, params.p1, params.p2, params.adaptive_p2,
-        s_max=s_max, label_ext=e, nl=nl, fuse_families=fuse_families)
+        s_max=s_max, label_ext=e, nl=nl)
 
 
 def _level_extract(s, base_u, base_v, params: FlowParams,
@@ -178,12 +172,10 @@ def _level_extract(s, base_u, base_v, params: FlowParams,
 
 
 def _flow_one_level(img1, cen1, cen2, prior_flow, params: FlowParams,
-                    plain: bool, fuse_families: bool = False
-                    ) -> torch.Tensor:
+                    plain: bool) -> torch.Tensor:
     base_u = torch.round(prior_flow[..., 0]).to(torch.int32)
     base_v = torch.round(prior_flow[..., 1]).to(torch.int32)
-    s = _level_s(img1, cen1, cen2, base_u, base_v, params, plain,
-                 fuse_families)
+    s = _level_s(img1, cen1, cen2, base_u, base_v, params, plain)
     return _level_extract(s, base_u, base_v, params, plain)
 
 
@@ -193,8 +185,7 @@ def _zero_flow(img: torch.Tensor) -> torch.Tensor:
 
 
 def _fsgm_flow_oneway(pyr1, pyr2, cens1, cens2, params: FlowParams,
-                      plain: bool, init_flow=None,
-                      fuse_families: bool = False) -> torch.Tensor:
+                      plain: bool, init_flow=None) -> torch.Tensor:
     """Coarse-to-fine pass over precomputed pyramids and census
     descriptors; ``init_flow`` (coarsest scale) seeds it instead of zeros."""
     flow = _zero_flow(pyr1[-1]) if init_flow is None else init_flow
@@ -203,14 +194,13 @@ def _fsgm_flow_oneway(pyr1, pyr2, cens1, cens2, params: FlowParams,
         if lvl < params.levels - 1:
             flow = upsample_flow_2x(flow, i1.shape[0], i1.shape[1])
         flow = _flow_one_level(i1, cens1[lvl], cens2[lvl], flow, params,
-                               plain, fuse_families)
+                               plain)
     return flow
 
 
 def _fsgm_flow_both(pyr1, pyr2, cens1, cens2, params: FlowParams,
                     bwd_final_params: FlowParams, bwd_stop: int,
-                    plain: bool, init_flow=None,
-                    fuse_families: bool = False):
+                    plain: bool, init_flow=None):
     """Forward and backward coarse-to-fine passes, level by level.  The
     backward pass runs at levels >= bwd_stop (0 for full/cheap, 1 for
     half) with the roles of the images swapped; levels above its last one
@@ -230,11 +220,11 @@ def _fsgm_flow_both(pyr1, pyr2, cens1, cens2, params: FlowParams,
             if lvl >= bwd_stop:
                 flow_b = upsample_flow_2x(flow_b, i1.shape[0], i1.shape[1])
         flow_f = _flow_one_level(i1, cens1[lvl], cens2[lvl], flow_f, params,
-                                 plain, fuse_families)
+                                 plain)
         if lvl >= bwd_stop:
             bp = bwd_final_params if lvl == bwd_stop else params
             flow_b = _flow_one_level(i2, cens2[lvl], cens1[lvl], flow_b, bp,
-                                     plain, fuse_families)
+                                     plain)
     return flow_f, flow_b
 
 
@@ -253,7 +243,7 @@ def _check(img1: torch.Tensor, img2: torch.Tensor, prior_flow) -> None:
 
 
 def _flow(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
-          prior_flow, plain: bool, fuse_families: bool = False):
+          prior_flow, plain: bool):
     """The port of fsgm_tpu/models/flow.py::_flow_fsgm_jit."""
     _check(img1, img2, prior_flow)
     pyr1 = build_pyramid(img1, params.levels)
@@ -267,23 +257,22 @@ def _flow(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
             init = downsample_flow_2x(init)
     if not params.fb_check:
         flow = _fsgm_flow_oneway(pyr1, pyr2, cens1, cens2, params, plain,
-                                 init, fuse_families)
+                                 init)
         return flow, torch.ones(flow.shape[:2], dtype=torch.bool,
                                 device=flow.device)
     if params.fb_backward == "single":
         # one backward level at full resolution, prior = -forward flow,
         # no subpixel or median
         flow = _fsgm_flow_oneway(pyr1, pyr2, cens1, cens2, params, plain,
-                                 init, fuse_families)
+                                 init)
         bwd_params = dataclasses.replace(params, subpixel=False,
                                          median_filter=False)
         flow_bwd = _flow_one_level(pyr2[0], cens2[0], cens1[0], -flow,
-                                   bwd_params, plain, fuse_families)
+                                   bwd_params, plain)
     elif params.fb_backward == "half":
         # the backward pyramid stops at level 1 (half resolution)
         flow, bwd_half = _fsgm_flow_both(pyr1, pyr2, cens1, cens2, params,
-                                         params, 1, plain, init,
-                                         fuse_families)
+                                         params, 1, plain, init)
         if params.fb_grid == "half":
             valid_h = fb_check(downsample_flow_2x(flow), bwd_half,
                                params.fb_max_diff * 0.5)
@@ -296,8 +285,7 @@ def _flow(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
             bwd_final = dataclasses.replace(params, subpixel=False,
                                             median_filter=False)
         flow, flow_bwd = _fsgm_flow_both(pyr1, pyr2, cens1, cens2, params,
-                                         bwd_final, 0, plain, init,
-                                         fuse_families)
+                                         bwd_final, 0, plain, init)
     if params.fb_grid == "half":
         valid_h = fb_check(downsample_flow_2x(flow),
                            downsample_flow_2x(flow_bwd),
@@ -307,43 +295,37 @@ def _flow(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
 
 
 def flow_fsgm(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
-              prior_flow: torch.Tensor | None = None,
-              fuse_families: bool = False):
+              prior_flow: torch.Tensor | None = None):
     """(H, W) uint8 pair -> (flow (H, W, 2) float32, valid (H, W) bool).
 
     ``valid`` is False where the forward-backward check failed (flow there
     holds the unchecked forward estimate).  ``prior_flow``, a
     full-resolution (H, W, 2) field, seeds the coarsest level (its
-    negation the backward pass): the temporal prior of flow_sequence.
-    ``fuse_families``: two K2 family launches per level call instead of
-    eight (module docstring)."""
-    return _flow(img1, img2, params, prior_flow, False, fuse_families)
+    negation the backward pass): the temporal prior of flow_sequence."""
+    return _flow(img1, img2, params, prior_flow, plain=False)
 
 
 def flow_fsgm_reference(img1: torch.Tensor, img2: torch.Tensor,
                         params: FlowParams,
-                        prior_flow: torch.Tensor | None = None,
-                        fuse_families: bool = False):
+                        prior_flow: torch.Tensor | None = None):
     """flow_fsgm through the plain PyTorch versions only."""
-    return _flow(img1, img2, params, prior_flow, True, fuse_families)
+    return _flow(img1, img2, params, prior_flow, plain=True)
 
 
 def flow_fsgm_batch(imgs1: torch.Tensor, imgs2: torch.Tensor,
-                    params: FlowParams, fuse_families: bool = False):
+                    params: FlowParams):
     """(B, H, W) uint8 pairs -> (flows (B, H, W, 2), valids (B, H, W)):
     each frame through the same kernels, one after another."""
     if imgs1.dim() != 3 or imgs1.shape != imgs2.shape:
         raise ValueError(f"batch shapes {tuple(imgs1.shape)} and "
                          f"{tuple(imgs2.shape)} must be equal (B, H, W)")
-    flows, valids = zip(*[flow_fsgm(a, b, params,
-                                    fuse_families=fuse_families)
+    flows, valids = zip(*[flow_fsgm(a, b, params)
                           for a, b in zip(imgs1, imgs2)])
     return torch.stack(flows), torch.stack(valids)
 
 
 def flow_sequence(frames: torch.Tensor, params: FlowParams,
-                  track_params: FlowParams | None = None,
-                  fuse_families: bool = False):
+                  track_params: FlowParams | None = None):
     """fSGM over (N, H, W) uint8 frames with temporal priors ->
     (flows (N-1, H, W, 2), valids (N-1, H, W)), flows[t] = motion from
     frame t to t+1.  Pair 0 runs ``params`` from scratch; every later pair
@@ -354,8 +336,7 @@ def flow_sequence(frames: torch.Tensor, params: FlowParams,
     prev = None
     for t in range(frames.shape[0] - 1):
         f, v = flow_fsgm(frames[t], frames[t + 1],
-                         params if prev is None else tp, prior_flow=prev,
-                         fuse_families=fuse_families)
+                         params if prev is None else tp, prior_flow=prev)
         flows.append(f)
         valids.append(v)
         prev = torch.where(v[..., None], f, 0.0)

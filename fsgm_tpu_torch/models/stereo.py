@@ -4,27 +4,15 @@ extraction -> subpixel / LR / median / fill tail.
 Counterpart of fsgm_tpu/models/stereo.py (``stereo_sgm``,
 ``stereo_sgm_batch``, ``right_disparity_reagg``).  One code path serves a
 batch of B frames and a single frame (B = 1): census of the (B, H, W)
-images, one K1 launch, one K2 launch per direction and one K3 launch for
-all B frames, then the plain-torch tail over (B, H, W), so each frame of a
-batch is bit for bit the frame alone.  The device is the inputs' device:
+images, one K1 launch, the K2 launches (one per direction, or one family
+launch per direction group where that fills the card better:
+ops/kernels/aggregate.py::aggregate_paths) and one K3 launch for all B
+frames, then the plain-torch tail over (B, H, W), so each frame of a batch
+is bit for bit the frame alone.  The device is the inputs' device:
 CUDA tensors launch the hand-written kernels (ops/kernels), CPU tensors run
 their plain versions.  ``stereo_sgm_reference`` and
 ``stereo_sgm_batch_reference`` compose only the plain versions, on any
 device, as the end-to-end check of the kernels.
-
-Two variants, each one keyword argument of every entry (the JAX package
-selects them by environment variables), both equal to the defaults bit for
-bit:
-
-  * ``fuse_families=True`` (JAX: FSGM_TR_DUAL=1): K2 sweeps each direction
-    group in one family launch (ops/kernels/aggregate.py::
-    sgm_sweep_family), 2 launches for 8 or 16 paths instead of one per
-    direction;
-  * ``extract="minor"`` (JAX: FSGM_EXTRACT=minor): K3 without the
-    right-view pass (d*, S[d*-1], S[d*], S[d*+1]), the subpixel parabola,
-    K3's right-view pass alone (wta_right) for the S-trick LR check, then
-    lr_check against that right view on the host; ``"kernel"`` (the
-    default) takes the LR validity plane from K3's one pass.
 """
 
 from __future__ import annotations
@@ -37,14 +25,7 @@ from fsgm_tpu_torch.ops.census import census_transform
 from fsgm_tpu_torch.ops.kernels import aggregate, cost, extract
 
 
-EXTRACT_MODES = ("kernel", "minor")
-
-
-def _check(imgs_l: torch.Tensor, imgs_r: torch.Tensor, dims: int,
-           extract_mode: str = "kernel") -> None:
-    if extract_mode not in EXTRACT_MODES:
-        raise ValueError(f"extract={extract_mode!r} is not one of "
-                         f"{EXTRACT_MODES}")
+def _check(imgs_l: torch.Tensor, imgs_r: torch.Tensor, dims: int) -> None:
     shape = "(H, W)" if dims == 2 else "(B, H, W)"
     if imgs_l.shape != imgs_r.shape or imgs_l.dim() != dims:
         raise ValueError(f"image shapes {tuple(imgs_l.shape)} and "
@@ -55,19 +36,16 @@ def _check(imgs_l: torch.Tensor, imgs_r: torch.Tensor, dims: int,
 
 def _s_volume(cen_ref: torch.Tensor, cen_match: torch.Tensor,
               guide: torch.Tensor, params: SGMParams, plain: bool,
-              right_reference: bool = False,
-              fuse_families: bool = False) -> torch.Tensor:
+              right_reference: bool = False) -> torch.Tensor:
     """(B, H, W, D) S of the left (or right) reference view; P2' guided by
-    that view's images; K2 in family launches with fuse_families.  The
-    cost volume is freed when this returns."""
+    that view's images.  The cost volume is freed when this returns."""
     build_cost = cost.census_cost_plain if plain else cost.census_cost
     aggregate_paths = (aggregate.aggregate_paths_plain if plain
                        else aggregate.aggregate_paths)
     c = build_cost(cen_ref, cen_match, params.max_disp, params.invalid_cost,
                    right_reference)
     return aggregate_paths(c, guide, params.dirs, params.p1, params.p2,
-                           params.adaptive_p2, s_max=params.s_invalid,
-                           fuse_families=fuse_families)
+                           params.adaptive_p2, s_max=params.s_invalid)
 
 
 def _extract(plain: bool):
@@ -76,41 +54,32 @@ def _extract(plain: bool):
 
 def right_disparity_reagg(cen_l: torch.Tensor, cen_r: torch.Tensor,
                           imgs_r: torch.Tensor, params: SGMParams,
-                          plain: bool = False,
-                          fuse_families: bool = False) -> torch.Tensor:
+                          plain: bool = False) -> torch.Tensor:
     """True LR re-aggregation (lr_mode="reagg"): the right-reference cost
     volume (K1, right_reference), full SGM over it guided by the right
     images (K2), and its WTA (K3 without the right-view pass): (B, H, W)
     int32 right-view disparity, smallest d on ties.  S_R uses the same
     plan_dtypes(s_invalid) as the left S."""
     s_r = _s_volume(cen_l, cen_r, imgs_r, params, plain,
-                    right_reference=True, fuse_families=fuse_families)
+                    right_reference=True)
     return _extract(plain)(s_r, params.s_invalid, params.lr_max_diff,
                            with_sub=False, with_rwta=False)[0]
 
 
 def _stereo(imgs_l: torch.Tensor, imgs_r: torch.Tensor, params: SGMParams,
-            plain: bool, extract_mode: str = "kernel",
-            fuse_families: bool = False) -> torch.Tensor:
+            plain: bool) -> torch.Tensor:
     """(B, H, W) uint8 pairs -> (B, H, W) float32 disparity."""
     cen_l = census_transform(imgs_l, params.census_window)
     cen_r = census_transform(imgs_r, params.census_window)
     d_right = None
     if params.lr_check and params.lr_mode == "reagg":
         # first, so that S_R is freed before the left S exists
-        d_right = right_disparity_reagg(cen_l, cen_r, imgs_r, params, plain,
-                                        fuse_families)
-    s = _s_volume(cen_l, cen_r, imgs_l, params, plain,
-                  fuse_families=fuse_families)
-    # "kernel": K3 checks LR itself unless reagg brought the right view
-    need_rwta = (params.lr_check and d_right is None
-                 and extract_mode == "kernel")
+        d_right = right_disparity_reagg(cen_l, cen_r, imgs_r, params, plain)
+    s = _s_volume(cen_l, cen_r, imgs_l, params, plain)
+    need_rwta = params.lr_check and d_right is None
     d_int, s_m, s_0, s_p, valid = _extract(plain)(
         s, params.s_invalid, params.lr_max_diff, params.subpixel,
         with_rwta=need_rwta)
-    if params.lr_check and d_right is None and not need_rwta:
-        wta_right = extract.wta_right_plain if plain else extract.wta_right
-        d_right = wta_right(s, params.s_invalid)
     del s
     disp = d_int.to(torch.float32)
     if params.subpixel:
@@ -129,42 +98,32 @@ def _stereo(imgs_l: torch.Tensor, imgs_r: torch.Tensor, params: SGMParams,
     return disp
 
 
-def stereo_sgm(img_l: torch.Tensor, img_r: torch.Tensor, params: SGMParams,
-               extract: str = "kernel",
-               fuse_families: bool = False) -> torch.Tensor:
-    """(H, W) uint8 pair -> (H, W) float32 disparity, INVALID = -1;
-    ``extract`` and ``fuse_families`` choose a variant (module
-    docstring)."""
-    _check(img_l, img_r, 2, extract)
-    return _stereo(img_l[None], img_r[None], params, False, extract,
-                   fuse_families)[0]
+def stereo_sgm(img_l: torch.Tensor, img_r: torch.Tensor,
+               params: SGMParams) -> torch.Tensor:
+    """(H, W) uint8 pair -> (H, W) float32 disparity, INVALID = -1."""
+    _check(img_l, img_r, 2)
+    return _stereo(img_l[None], img_r[None], params, plain=False)[0]
 
 
 def stereo_sgm_reference(img_l: torch.Tensor, img_r: torch.Tensor,
-                         params: SGMParams, extract: str = "kernel",
-                         fuse_families: bool = False) -> torch.Tensor:
+                         params: SGMParams) -> torch.Tensor:
     """stereo_sgm through the plain PyTorch versions only."""
-    _check(img_l, img_r, 2, extract)
-    return _stereo(img_l[None], img_r[None], params, True, extract,
-                   fuse_families)[0]
+    _check(img_l, img_r, 2)
+    return _stereo(img_l[None], img_r[None], params, plain=True)[0]
 
 
 def stereo_sgm_batch(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
-                     params: SGMParams, extract: str = "kernel",
-                     fuse_families: bool = False) -> torch.Tensor:
+                     params: SGMParams) -> torch.Tensor:
     """(B, H, W) uint8 pairs -> (B, H, W) float32: one pass for all B
-    frames (one K1 launch, one K2 launch per direction or, with
-    fuse_families, per direction group, one K3 launch and with
-    extract="minor" its right-view pass, and under lr_mode="reagg" the
-    same again for the right view); each frame bit-identical to
-    stereo_sgm on that frame."""
-    _check(imgs_l, imgs_r, 3, extract)
-    return _stereo(imgs_l, imgs_r, params, False, extract, fuse_families)
+    frames (one K1 launch, the K2 launches of aggregate_paths, one K3
+    launch, and under lr_mode="reagg" the same again for the right view);
+    each frame bit-identical to stereo_sgm on that frame."""
+    _check(imgs_l, imgs_r, 3)
+    return _stereo(imgs_l, imgs_r, params, plain=False)
 
 
 def stereo_sgm_batch_reference(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
-                               params: SGMParams, extract: str = "kernel",
-                               fuse_families: bool = False) -> torch.Tensor:
+                               params: SGMParams) -> torch.Tensor:
     """stereo_sgm_batch through the plain PyTorch versions only."""
-    _check(imgs_l, imgs_r, 3, extract)
-    return _stereo(imgs_l, imgs_r, params, True, extract, fuse_families)
+    _check(imgs_l, imgs_r, 3)
+    return _stereo(imgs_l, imgs_r, params, plain=True)

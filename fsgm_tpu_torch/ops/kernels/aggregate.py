@@ -37,13 +37,18 @@ that the tiled path of the JAX package runs.
 Family launch (``sgm_sweep_family``): one launch sweeps several directions
 of all B frames and adds the sum of their L_r into S, or writes it as a
 fresh S.  It replaces fsgm_tpu/ops/pallas/aggregate_tr.py::
-tr_dual_family_sweep (``aggregate_paths(..., fuse_families=True)``: one
-launch for the directions with dy != 0, one for those with dy = 0, as the
-JAX package's FSGM_TR_DUAL=1 path groups them) and tools/trexp.py::
-tr_row_family_sweep (the dy = 1 family added into a given S).  The kernel's
-S updates are atomic adds, exact for int16 S while every S value stays in
-[0, 2^15), which plan_dtypes guarantees for the S it plans.  It takes no
-carry: the tiled paths keep the per-direction launches.
+tr_dual_family_sweep (one launch for the directions with dy != 0, one for
+those with dy = 0, as the JAX package's FSGM_TR_DUAL=1 path groups them)
+and tools/trexp.py::tr_row_family_sweep (the dy = 1 family added into a
+given S).  The kernel's S updates are atomic adds, exact for int16 S while
+every S value stays in [0, 2^15), which plan_dtypes guarantees for the S it
+plans.  It takes no carry: the tiled paths keep the per-direction launches.
+``aggregate_paths`` takes the family launches where one direction's lines
+of all B frames (one warp each) fill less than half of the warps the card
+holds at once (``family_launch_pays``): there the per-direction launches
+leave the card mostly idle, and the family launch fills it.  Where one
+direction fills half the card or more, the per-direction launches win,
+because they need no atomics.  Both give the same S bit for bit.
 
 Also here, from fsgm_tpu/ops/pallas/aggregate_pallas.py: ``p2_effective``
 (the P2' table, adaptive or not, with the two image rows beyond a tile's
@@ -332,20 +337,16 @@ def sgm_sweep_family(cost: torch.Tensor, p2e_tables: torch.Tensor,
                      s: torch.Tensor | None = None,
                      s_dtype: torch.dtype = torch.int16,
                      label_ext: int | None = None,
-                     nl: int | None = None,
-                     init_carry: torch.Tensor | None = None,
-                     return_carry: bool = False) -> torch.Tensor:
+                     nl: int | None = None) -> torch.Tensor:
     """Aggregate several directions in one launch: S += sum_r L_r in place
     and return S, or, with s None, return a fresh S = sum_r L_r in
     s_dtype.  cost, label_ext and nl as for sgm_sweep; p2e_tables
     (n, B, H, W) int32 ((n, H, W) without a frame axis): table j is the
     P2' of direction j, as p2_effective gives it; at most 16 directions.
     An int16 S must hold values in [0, 2^15) before and after (the
-    kernel's atomic adds; plan_dtypes guarantees it for its S).  No carry
-    (module docstring): init_carry or return_carry raises."""
-    if init_carry is not None or return_carry:
-        raise ValueError("sgm_sweep_family takes no carry; the tiled paths "
-                         "sweep one direction per launch (sgm_sweep)")
+    kernel's atomic adds; plan_dtypes guarantees it for its S).  The family
+    launch takes no carry (module docstring): the tiled paths sweep one
+    direction per launch (sgm_sweep)."""
     directions = [tuple(r) for r in directions]
     if not 0 < len(directions) <= MAX_FAMILY:
         raise ValueError(f"a family launch takes 1 to {MAX_FAMILY} "
@@ -404,11 +405,43 @@ def sgm_sweep_family(cost: torch.Tensor, p2e_tables: torch.Tensor,
 
 
 def direction_groups(dirs: Sequence[Tuple[int, int]]) -> list:
-    """The family launches of aggregate_paths(fuse_families=True): the
-    directions with dy != 0, then those with dy = 0, each group in the
-    order of dirs; an empty group is left out."""
+    """The family launches of aggregate_paths: the directions with dy != 0,
+    then those with dy = 0, each group in the order of dirs; an empty group
+    is left out."""
     groups = [[r for r in dirs if r[0] != 0], [r for r in dirs if r[0] == 0]]
     return [g for g in groups if g]
+
+
+def lines_per_frame(h: int, w: int, direction: Tuple[int, int]) -> int:
+    """The path lines of one direction in an H x W frame, one warp each in
+    K2 (csrc/sgm_sweep.cu::lines_of): a line starts at every pixel whose
+    predecessor lies outside the image."""
+    dy, dx = (abs(v) for v in direction)
+    band = min(dy, h)
+    return band * w + (h - band) * min(dx, w)
+
+
+def resident_warps(device: torch.device) -> int:
+    """The warps the card of device holds at once (SMs x threads per SM /
+    32); 0 off the card, where no kernel runs."""
+    if device.type != "cuda":
+        return 0
+    props = torch.cuda.get_device_properties(device)
+    return (props.multi_processor_count
+            * props.max_threads_per_multi_processor // 32)
+
+
+def family_launch_pays(frames: int, h: int, w: int,
+                       dirs: Sequence[Tuple[int, int]], warps: int) -> bool:
+    """Whether aggregate_paths sweeps in family launches: when even the
+    direction with the most lines, over all frames, gives fewer warps than
+    half of the card's ``warps`` resident ones, so that a launch per
+    direction leaves most of the card idle.  The half is measured: on one
+    H100 (8,448 resident warps) the family launches of a KITTI frame's 8
+    directions beat the per-direction launches at 1 and 2 frames (1,616
+    and 3,232 lines) and lose from 4 frames (6,464) on (PERF.md); every
+    flow level of a KITTI frame takes them."""
+    return 2 * frames * max(lines_per_frame(h, w, r) for r in dirs) < warps
 
 
 def aggregate_paths(cost: torch.Tensor, img: torch.Tensor,
@@ -416,16 +449,17 @@ def aggregate_paths(cost: torch.Tensor, img: torch.Tensor,
                     adaptive_p2: bool = False,
                     s_max: int | None = None,
                     label_ext: int | None = None,
-                    nl: int | None = None,
-                    fuse_families: bool = False) -> torch.Tensor:
+                    nl: int | None = None) -> torch.Tensor:
     """S = sum_r L_r for all frames; cost's shape ((H, W, D) or
     (B, H, W, D), img (H, W) or (B, H, W)) in plan_dtypes(s_max).  One
-    sgm_sweep launch per direction, or with fuse_families one
-    sgm_sweep_family launch per direction group (direction_groups): 2
-    launches for 8 or 16 paths.  Both give the same S bit for bit."""
+    sgm_sweep_family launch per direction group (direction_groups: 2 for 8
+    or 16 paths) where family_launch_pays on cost's card, else one
+    sgm_sweep launch per direction.  Both give the same S bit for bit."""
     s_dtype = plan_dtypes(s_max)
+    h, w = cost.shape[-3:-1]
+    frames = cost.shape[0] if cost.dim() == 4 else 1
     s = None
-    if fuse_families:
+    if family_launch_pays(frames, h, w, dirs, resident_warps(cost.device)):
         for group in direction_groups(dirs):
             tables = torch.stack([p2_effective(img, r, p1, p2, adaptive_p2)
                                   for r in group])
@@ -443,17 +477,8 @@ def aggregate_paths_plain(cost: torch.Tensor, img: torch.Tensor,
                           adaptive_p2: bool = False,
                           s_max: int | None = None,
                           label_ext: int | None = None,
-                          nl: int | None = None,
-                          fuse_families: bool = False) -> torch.Tensor:
-    """aggregate_paths through the plain sweeps on any device (with
-    fuse_families, sgm_sweep_family_plain per direction group)."""
-    def table(r):
-        return p2_effective(img, r, p1, p2, adaptive_p2)
-    if fuse_families:
-        s = sum(sgm_sweep_family_plain(cost, [table(r) for r in group],
-                                       group, p1, label_ext, nl)
-                for group in direction_groups(dirs))
-    else:
-        s = sum(sgm_sweep_plain(cost, table(r), r, p1, label_ext, nl)
-                for r in dirs)
+                          nl: int | None = None) -> torch.Tensor:
+    """aggregate_paths through the plain sweeps on any device."""
+    s = sum(sgm_sweep_plain(cost, p2_effective(img, r, p1, p2, adaptive_p2),
+                            r, p1, label_ext, nl) for r in dirs)
     return s.to(plan_dtypes(s_max))

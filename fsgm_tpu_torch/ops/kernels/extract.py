@@ -15,14 +15,17 @@ returns five int32 planes of S's leading shape:
 
 Without with_rwta, K3 also replaces fsgm_tpu/ops/pallas/extract_pallas.py::
 wta_neighborhood (d*, S[d*-1], S[d*], S[d*+1] of the label-minor S, the
-"minor" extraction's first pass).  One convention differs at label edges:
+first pass of the JAX package's FSGM_EXTRACT=minor extraction; the port's
+right-reference pass of lr_mode="reagg" runs K3 so).  One convention differs at label edges:
 wta_neighborhood returns s_m = 0 where d* = 0 and s_p = 0 where d* = D-1,
 K3 returns BIG there; callers read s_m / s_p only on the interior.
 
 ``wta_right`` (K3's right-view pass, csrc/extract.cu) replaces fsgm_tpu/
 ops/pallas/extract_tr.py::wta_right_major: the (B, H, W) int32 right-view
-WTA rho alone from one read of S, for the "minor" extraction
-(models/stereo.py, extract="minor").
+WTA rho alone from one read of S.  No path of the port calls it: the JAX
+package's FSGM_EXTRACT=minor extraction, which runs wta_right_major, gives
+the same disparity as K3's one pass with its right view and LR check and
+is slower on the card, so the port keeps K3's one pass (PERF.md).
 
 For column tiling (fsgm_tpu_torch/parallel/tiled.py) S may be a window
 whose column x sits at the global column gx0 + x of an image w_global

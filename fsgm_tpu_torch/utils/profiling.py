@@ -2,9 +2,8 @@
 
     python -m fsgm_tpu_torch.utils.profiling [--pipeline stereo|flow|tiled] \\
         [--preset configs/kitti_stereo.json] [--height 375] [--width 1242] \\
-        [--batch 1] [--tile-mode fast|exact] [--fuse-families] \\
-        [--extract kernel|minor] [--calls 10] [--warmup 3] [--seed 0] \\
-        [--device cuda]
+        [--batch 1] [--tile-mode fast|exact] [--calls 10] [--warmup 3] \\
+        [--seed 0] [--device cuda]
 
 ``--pipeline stereo`` (the default) runs stereo_sgm_batch on B random-dot
 pairs (seeds seed .. seed + B - 1; B = 1 is stereo_sgm) of the given size at
@@ -15,9 +14,7 @@ blockwise_flow_pair of that size with motion up to 8 px (default preset
 configs/kitti_flow.json).  ``--pipeline tiled`` runs stereo_sgm_sharded on
 B random-dot pairs with the preset's distribution (default
 configs/tiled_4k.json, config 5; ``--tile-mode`` overrides its mode), every
-tile on the card, numbers per frame.  ``--fuse-families`` (stereo, flow)
-sweeps each direction group in one K2 family launch, ``--extract minor``
-(stereo) runs the "minor" extraction (models/stereo.py).  Each runs ``warmup`` calls first,
+tile on the card, numbers per frame.  Each runs ``warmup`` calls first,
 then prints one line per kernel name (launches per frame, ms per frame,
 share of the busy time), then the totals, and last the whole record as one
 JSON object:
@@ -130,19 +127,15 @@ def profile_frames(frame, dev: torch.device, calls: int = 10,
 
 def profile_stereo(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
                    params: SGMParams, calls: int = 10,
-                   warmup: int = 3, extract: str = "kernel",
-                   fuse_families: bool = False) -> dict:
+                   warmup: int = 3) -> dict:
     """The per-frame breakdown record of stereo_sgm_batch(imgs_l, imgs_r,
-    params, extract, fuse_families) over (B, H, W) pairs, or of one
-    (H, W) pair as a batch of 1; the device is the images'."""
+    params) over (B, H, W) pairs, or of one (H, W) pair as a batch of 1;
+    the device is the images'."""
     if imgs_l.dim() == 2:
         imgs_l, imgs_r = imgs_l[None], imgs_r[None]
-    rec = profile_frames(
-        lambda: stereo_sgm_batch(imgs_l, imgs_r, params, extract,
-                                 fuse_families),
-        imgs_l.device, calls, warmup, imgs_l.shape[0])
+    rec = profile_frames(lambda: stereo_sgm_batch(imgs_l, imgs_r, params),
+                         imgs_l.device, calls, warmup, imgs_l.shape[0])
     return {"pipeline": "stereo", "batch": imgs_l.shape[0],
-            "extract": extract, "fuse_families": fuse_families,
             "shape": [*imgs_l.shape[1:], params.max_disp], **rec}
 
 
@@ -161,15 +154,13 @@ def profile_tiled(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
 
 
 def profile_flow(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
-                 calls: int = 10, warmup: int = 3,
-                 fuse_families: bool = False) -> dict:
-    """The breakdown record of flow_fsgm(img1, img2, params,
-    fuse_families=fuse_families); the device is the images'."""
-    rec = profile_frames(
-        lambda: flow_fsgm(img1, img2, params, fuse_families=fuse_families),
-        img1.device, calls, warmup)
-    return {"pipeline": "flow", "fuse_families": fuse_families,
-            "shape": [*img1.shape, params.num_labels], **rec}
+                 calls: int = 10, warmup: int = 3) -> dict:
+    """The breakdown record of flow_fsgm(img1, img2, params); the device is
+    the images'."""
+    rec = profile_frames(lambda: flow_fsgm(img1, img2, params),
+                         img1.device, calls, warmup)
+    return {"pipeline": "flow", "shape": [*img1.shape, params.num_labels],
+            **rec}
 
 
 def main(argv=None) -> int:
@@ -183,11 +174,6 @@ def main(argv=None) -> int:
                     "frames per call (numbers per frame)")
     ap.add_argument("--tile-mode", choices=["fast", "exact"],
                     help="tiled: instead of the preset's tile_mode")
-    ap.add_argument("--fuse-families", action="store_true",
-                    help="stereo, flow: one K2 launch per direction group")
-    ap.add_argument("--extract", default="kernel",
-                    choices=["kernel", "minor"],
-                    help="stereo: the extraction variant")
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -200,10 +186,6 @@ def main(argv=None) -> int:
     if args.batch < 1 or (args.batch > 1 and args.pipeline == "flow"):
         raise SystemExit("--batch B takes B >= 1, and B > 1 only with the "
                          "stereo and tiled pipelines")
-    if (args.pipeline == "tiled" and args.fuse_families) or (
-            args.pipeline != "stereo" and args.extract != "kernel"):
-        raise SystemExit("--fuse-families takes the stereo and flow "
-                         "pipelines, --extract minor the stereo pipeline")
     if args.pipeline in ("stereo", "tiled"):
         params = preset["sgm"]
         pairs = [random_dot_stereo(args.height, args.width, params.max_disp,
@@ -211,9 +193,7 @@ def main(argv=None) -> int:
                  for k in range(args.batch)]
         a = np.stack([p[0] for p in pairs])
         b = np.stack([p[1] for p in pairs])
-        def run(il, ir, params, calls, warmup):
-            return profile_stereo(il, ir, params, calls, warmup,
-                                  args.extract, args.fuse_families)
+        run = profile_stereo
         if args.pipeline == "tiled":
             dist = preset["dist"]
             if args.tile_mode:
@@ -225,9 +205,7 @@ def main(argv=None) -> int:
         params = preset["flow"]
         a, b, _, _ = blockwise_flow_pair(args.height, args.width,
                                          FLOW_MAX_MAG, seed=args.seed)
-        def run(i1, i2, params, calls, warmup):
-            return profile_flow(i1, i2, params, calls, warmup,
-                                args.fuse_families)
+        run = profile_flow
     rec = run(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
               params, args.calls, args.warmup)
     if args.device == "cuda":

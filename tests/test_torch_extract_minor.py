@@ -1,4 +1,5 @@
-"""PyTorch port: the "minor" extraction and the kernels it routes to.
+"""PyTorch port: K3's right-view pass (wta_right) and the kernels that the
+JAX package's "minor" extraction (FSGM_EXTRACT=minor) routes to.
 
 Plain versions (the CPU path of each wrapper) against the JAX package:
 
@@ -12,9 +13,11 @@ Plain versions (the CPU path of each wrapper) against the JAX package:
     edges, K3 gives BIG; callers read neither);
   * K1 against fsgm_tpu/ops/pallas/cost_pallas.py::cost_volume_stereo with
     5x5 and 9x7 census;
-  * stereo_sgm(extract="minor") against extract="kernel" and against JAX
-    stereo_sgm(..., backend="xla"), with the S-trick LR check, reagg and
-    fill_invalid.
+  * the "minor" composition (K3 without the right view, the parabola,
+    wta_right, lr_check) against K3's one pass and against JAX
+    wta_right_from_s and lr_check on the same S.  The port's stereo paths
+    run K3's one pass: the composition gives the same disparity and is
+    slower on the card (PERF.md).
 
 The kernels themselves run on the card (the `cuda` test at the end and
 chip_smoke.py phase 9).
@@ -29,12 +32,13 @@ from jax.experimental import pallas as pl
 
 import golden.sgm as g
 from fsgm_tpu.io.synthetic import random_dot_stereo
-from fsgm_tpu.models.stereo import stereo_sgm as jax_stereo_sgm
 from fsgm_tpu.ops import census as jcensus
+from fsgm_tpu.ops import extract as jext
 from fsgm_tpu.ops.pallas import cost_pallas, extract_pallas, extract_tr
-from fsgm_tpu_torch import SGMParams, stereo_sgm, stereo_sgm_batch
+from fsgm_tpu_torch import SGMParams, stereo_sgm
 from fsgm_tpu_torch.ops import extract as ext
 from fsgm_tpu_torch.ops.census import census_transform
+from fsgm_tpu_torch.ops.kernels import aggregate as agg
 from fsgm_tpu_torch.ops.kernels import cost, extract, probe
 
 TOL = 1e-3
@@ -121,37 +125,47 @@ def test_wta_right_matches_diag_min_packed_harness():
         np.testing.assert_array_equal(v[rho, np.arange(w) + rho], got >> 8)
 
 
-@pytest.mark.parametrize("kw", [{}, {"lr_mode": "reagg"},
-                                {"fill_invalid": True, "subpixel": False}])
-def test_minor_extraction_equals_kernel_and_jax(kw):
-    """extract="minor" (with and without fuse_families) equals the default
-    bit for bit, for one frame and a batch of two, and the JAX xla path
-    within 1e-3 with the same invalid mask, at 48x64, D = 32."""
-    il, ir, _ = random_dot_stereo(48, 64, 32, seed=13)
-    p = SGMParams(max_disp=32, p1=7, p2=60, **kw)
-    tl, tr = _t(il), _t(ir)
-    want = stereo_sgm(tl, tr, p)
-    for fuse in (False, True):
-        got = stereo_sgm(tl, tr, p, extract="minor", fuse_families=fuse)
-        assert torch.equal(got, want), fuse
-    il2, ir2, _ = random_dot_stereo(48, 64, 32, seed=14)
-    bl, br = torch.stack([tl, _t(il2)]), torch.stack([tr, _t(ir2)])
-    assert torch.equal(stereo_sgm_batch(bl, br, p, extract="minor"),
-                       stereo_sgm_batch(bl, br, p))
-    jax_disp = np.asarray(jax_stereo_sgm(jnp.asarray(il), jnp.asarray(ir), p,
-                                         backend="xla"))
-    ours = want.numpy()
-    np.testing.assert_array_equal(ours < 0, jax_disp < 0)
-    both = ours >= 0
-    np.testing.assert_allclose(ours[both], jax_disp[both], atol=TOL)
+@pytest.mark.parametrize("h,w,paths,adaptive", [(48, 64, 8, False),
+                                                 (48, 64, 16, True),
+                                                 (31, 47, 8, True)])
+def test_minor_extraction_equals_kernel_and_jax(h, w, paths, adaptive):
+    """On the S of a random-dot pair (D = 32): K3 without the right-view
+    pass gives K3's d*, S[d*-1], S[d*], S[d*+1]; the parabola, wta_right
+    and lr_valid on them give K3's validity plane bit for bit (JAX:
+    got_minor == ref in tests/unit/test_extract_major.py); wta_right
+    equals JAX wta_right_from_s, and lr_check equals JAX lr_check within
+    1e-3 with the same invalid mask."""
+    il, ir, _ = random_dot_stereo(h, w, 32, seed=13)
+    p = SGMParams(max_disp=32, p1=7, p2=60, adaptive_p2=adaptive,
+                  num_paths=paths)
+    c = cost.census_cost(census_transform(_t(il)), census_transform(_t(ir)),
+                         32, p.invalid_cost)
+    s = agg.aggregate_paths(c, _t(il), p.dirs, p.p1, p.p2, p.adaptive_p2,
+                            p.s_invalid)
+    *left, valid = extract.extract_stereo(s, p.s_invalid, p.lr_max_diff)
+    *minor, none = extract.extract_stereo(s, p.s_invalid, with_rwta=False)
+    assert none is None
+    assert all(torch.equal(a, b) for a, b in zip(left, minor))
+    disp = ext.subpixel_from_neighborhood(*minor, 32)
+    rho = extract.wta_right(s, p.s_invalid)
+    assert torch.equal(ext.lr_valid(disp, rho, p.lr_max_diff, 32),
+                       valid.bool())
+    np.testing.assert_array_equal(
+        rho.numpy(), np.asarray(jext.wta_right_from_s(jnp.asarray(s.numpy()),
+                                                      p.s_invalid)))
+    ours = ext.lr_check(disp, rho, p.lr_max_diff, 32).numpy()
+    want = np.asarray(jext.lr_check(jnp.asarray(disp.numpy()),
+                                    jnp.asarray(rho.numpy()), p.lr_max_diff,
+                                    32))
+    np.testing.assert_array_equal(ours == ext.INVALID, want == ext.INVALID)
+    assert (ours == ext.INVALID).any() and (ours != ext.INVALID).any()
+    both = ours != ext.INVALID
+    np.testing.assert_allclose(ours[both], want[both], atol=TOL)
 
 
 def test_rejects_and_probe_plain():
-    """An unknown extraction mode and a bad S raise; min_probe's plain
-    version on the CPU is torch.minimum for every form."""
-    il, ir, _ = random_dot_stereo(9, 20, 8, seed=1)
-    with pytest.raises(ValueError, match="extract"):
-        stereo_sgm(_t(il), _t(ir), SGMParams(max_disp=8), extract="major")
+    """A bad S raises; min_probe's plain version on the CPU is
+    torch.minimum for every form."""
     with pytest.raises(TypeError):
         extract.wta_right(torch.zeros((4, 6, 32), dtype=torch.float32), 900)
     with pytest.raises(ValueError):
@@ -179,8 +193,7 @@ def card():
 def test_minor_kernels_match_plain_on_the_card(card):
     """K3's right-view pass against its plain version (int16 and int32,
     two frames, odd W, D = 32 and 96, ties), the min16_probe forms against
-    torch.minimum, and stereo_sgm(extract="minor", fuse_families=True)
-    equal to the default."""
+    torch.minimum, and stereo_sgm's invalid mask equal to golden's."""
     rng = np.random.default_rng(0)
     for nd, dtype in ((32, torch.int16), (96, torch.int32)):
         s = torch.from_numpy(rng.integers(0, 6, (2, 7, 45, nd))).to(dtype)
@@ -195,8 +208,6 @@ def test_minor_kernels_match_plain_on_the_card(card):
     il, ir, _ = random_dot_stereo(37, 53, 32, seed=5)
     tl, tr = _t(il).to(card), _t(ir).to(card)
     p = SGMParams(max_disp=32, p1=7, p2=60, adaptive_p2=True, num_paths=16)
-    assert torch.equal(stereo_sgm(tl, tr, p, extract="minor",
-                                  fuse_families=True), stereo_sgm(tl, tr, p))
     ours = stereo_sgm(tl, tr, p).cpu().numpy()
     want = g.sgm_stereo(il, ir, p)
     np.testing.assert_array_equal(ours < 0, want < 0)

@@ -1,4 +1,5 @@
-"""PyTorch port: K2's family launch (sgm_sweep_family) and fuse_families.
+"""PyTorch port: K2's family launch (sgm_sweep_family) and when
+aggregate_paths takes it.
 
 sgm_sweep_family sweeps several directions in one launch and adds the sum
 of their L_r into S.  Its plain version (the CPU path of the wrapper) is
@@ -13,14 +14,13 @@ held to the JAX package:
     contract; aggregate_one_path is that tool's plain reference), and over
     the 8 paths with flow's 2D label rule and pad slots.
 
-stereo_sgm and flow_fsgm with fuse_families=True equal the default bit for
-bit, and the profiler's --fuse-families / --extract flags reach them.
-The kernel itself runs on the card (the `cuda` test at the end and
-chip_smoke.py phase 9).
+aggregate_paths takes the family launches where family_launch_pays (one
+direction's lines of all frames are fewer than the card's resident warps).
+On the CPU no card is there to fill, so the tests raise the warp count to
+make it take them: stereo_sgm and flow_fsgm then equal their per-direction
+results bit for bit.  The kernel itself runs on the card (the `cuda` test
+at the end and chip_smoke.py phase 9).
 """
-
-import json
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,7 +37,7 @@ from fsgm_tpu_torch.io import blockwise_flow_pair
 from fsgm_tpu_torch.ops.kernels import aggregate as agg
 
 P1, P2 = 7, 60
-REPO = Path(__file__).resolve().parents[1]
+H100_WARPS = 132 * 2048 // 32  # SMs x threads per SM / warp size
 
 
 def _volume(h, w, d, seed):
@@ -121,9 +121,9 @@ def test_rejects_a_carry_and_bad_input():
     dirs = [(1, 0), (-1, 1)]
     tables = _tables(img, dirs, False)
     carry = torch.zeros((2,) + tc.shape[1:], dtype=torch.int32)
-    with pytest.raises(ValueError, match="no carry"):
+    with pytest.raises(TypeError, match="init_carry"):
         agg.sgm_sweep_family(tc, tables, dirs, P1, init_carry=carry)
-    with pytest.raises(ValueError, match="no carry"):
+    with pytest.raises(TypeError, match="return_carry"):
         agg.sgm_sweep_family(tc, tables, dirs, P1, return_carry=True)
     with pytest.raises(ValueError):
         agg.sgm_sweep_family(tc, tables[:0], [], P1)
@@ -136,10 +136,25 @@ def test_rejects_a_carry_and_bad_input():
                              s=torch.zeros((9, 20, 8), dtype=torch.int16))
 
 
-def test_fused_aggregate_paths_equals_per_direction():
-    """aggregate_paths and its plain version with fuse_families equal the
-    per-direction sums for 8 and 16 paths and a one-group set, int16 and
-    int32 S; the groups are the dy != 0 and the dy = 0 directions."""
+@pytest.fixture
+def fused(monkeypatch):
+    """aggregate_paths takes the family launches on the CPU too."""
+    monkeypatch.setattr(agg, "resident_warps", lambda device: 1 << 40)
+
+
+def _per_direction(tc, ti, dirs, s_max, e=None, nl=None):
+    s = None
+    for r in dirs:
+        s = agg.sgm_sweep(tc, agg.p2_effective(ti, r, P1, P2, True), r, P1,
+                          s=s, s_dtype=agg.plan_dtypes(s_max), label_ext=e,
+                          nl=nl)
+    return s
+
+
+def test_fused_aggregate_paths_equals_per_direction(fused):
+    """aggregate_paths in family launches equals the per-direction sweeps
+    and its plain version for 8 and 16 paths and a one-group set, int16
+    and int32 S; the groups are the dy != 0 and the dy = 0 directions."""
     img, cost = _volume(19, 30, 16, seed=2)
     ti, tc = torch.from_numpy(img), torch.from_numpy(cost)
     assert agg.direction_groups(DIRS_8) == [
@@ -149,40 +164,54 @@ def test_fused_aggregate_paths_equals_per_direction():
     assert agg.direction_groups(DIRS_8[:2]) == [[(0, 1), (0, -1)]]
     for dirs, s_max in ((DIRS_8, 2841), (DIRS_16, 40000),
                         ([(1, 0), (-1, 1)], 900), (DIRS_8[:2], 900)):
-        want = agg.aggregate_paths(tc, ti, dirs, P1, P2, True, s_max)
+        want = _per_direction(tc, ti, dirs, s_max)
         for fn in (agg.aggregate_paths, agg.aggregate_paths_plain):
-            got = fn(tc, ti, dirs, P1, P2, True, s_max, fuse_families=True)
+            got = fn(tc, ti, dirs, P1, P2, True, s_max)
             assert got.dtype == want.dtype and torch.equal(got, want), dirs
 
 
-def test_fused_stereo_and_flow_equal_default():
-    """stereo_sgm (16 paths, adaptive) and flow_fsgm with
-    fuse_families=True equal their defaults bit for bit at 37x53."""
+def test_fused_stereo_and_flow_equal_default(monkeypatch):
+    """stereo_sgm (16 paths, adaptive) and flow_fsgm with every K2 call in
+    family launches equal their per-direction results bit for bit at
+    37x53."""
     il, ir, _ = random_dot_stereo(37, 53, 32, seed=5)
     tl, tr = torch.from_numpy(il), torch.from_numpy(ir)
     p = SGMParams(max_disp=32, p1=7, p2=60, adaptive_p2=True, num_paths=16)
-    assert torch.equal(stereo_sgm(tl, tr, p, fuse_families=True),
-                       stereo_sgm(tl, tr, p))
     i1, i2, _, _ = blockwise_flow_pair(37, 53, 4, seed=0)
     f1, f2 = torch.from_numpy(i1), torch.from_numpy(i2)
     fp = FlowParams(search_radius=2, levels=2, adaptive_p2=True)
-    got = flow_fsgm(f1, f2, fp, fuse_families=True)
-    want = flow_fsgm(f1, f2, fp)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    want_s, want_f = stereo_sgm(tl, tr, p), flow_fsgm(f1, f2, fp)
+    calls = []
+    family = agg.sgm_sweep_family
+    monkeypatch.setattr(agg, "resident_warps", lambda device: 1 << 40)
+    monkeypatch.setattr(agg, "sgm_sweep_family",
+                        lambda *a, **k: calls.append(a[2]) or family(*a, **k))
+    assert torch.equal(stereo_sgm(tl, tr, p), want_s)
+    assert calls == agg.direction_groups(p.dirs)
+    got = flow_fsgm(f1, f2, fp)
+    assert all(torch.equal(a, b) for a, b in zip(got, want_f))
+    assert len(calls) > 2
 
 
-def test_profiler_runs_the_variants(capsys):
-    """utils/profiling.py --fuse-families and --extract minor reach the
-    stereo entry (the record names them); --extract takes stereo only."""
-    from fsgm_tpu_torch.utils.profiling import main
-    base = ["--device", "cpu", "--height", "12", "--width", "20",
-            "--preset", str(REPO / "configs" / "tsukuba.json"),
-            "--calls", "1", "--warmup", "0"]
-    assert main(base + ["--fuse-families", "--extract", "minor"]) == 0
-    rec = json.loads(capsys.readouterr().out.splitlines()[-1])
-    assert rec["fuse_families"] and rec["extract"] == "minor"
-    with pytest.raises(SystemExit):
-        main(base + ["--pipeline", "flow", "--extract", "minor"])
+def test_family_launch_rule():
+    """lines_per_frame counts the pixels whose predecessor lies outside the
+    frame; family_launch_pays holds where the largest direction's lines
+    over all frames are fewer than half the card's resident warps: 1 and
+    2 KITTI frames yes, 3 and 16 no, and never on the CPU (0 warps)."""
+    for h, w in ((375, 1242), (5, 3), (1, 7), (2, 2)):
+        ys, xs = np.mgrid[:h, :w]
+        for dy, dx in DIRS_16:
+            outside = ((ys - dy < 0) | (ys - dy >= h) | (xs - dx < 0)
+                       | (xs - dx >= w))
+            assert agg.lines_per_frame(h, w, (dy, dx)) == outside.sum()
+    assert agg.lines_per_frame(375, 1242, (1, 1)) == 1616
+    assert agg.family_launch_pays(1, 375, 1242, DIRS_8, H100_WARPS)
+    assert agg.family_launch_pays(2, 375, 1242, DIRS_8, H100_WARPS)
+    assert not agg.family_launch_pays(3, 375, 1242, DIRS_8, H100_WARPS)
+    assert not agg.family_launch_pays(16, 375, 1242, DIRS_8, H100_WARPS)
+    assert agg.family_launch_pays(1, 375, 1242, DIRS_16, H100_WARPS)
+    assert agg.resident_warps(torch.device("cpu")) == 0
+    assert not agg.family_launch_pays(1, 37, 53, DIRS_8, 0)
 
 
 @pytest.fixture
@@ -198,8 +227,8 @@ def test_family_kernel_matches_plain_on_the_card(card):
     (one label per lane: the single-value int16 atomics) and D = 64 (paired
     int16 atomics), the 2D rule with 81 labels in 96 slots (three labels per
     lane), two frames, fresh S and S given, int16 and int32; and
-    aggregate_paths with fuse_families equal to the per-direction
-    launches."""
+    aggregate_paths (family launches at this size) equal to the
+    per-direction launches."""
     rng = np.random.default_rng(0)
     for nd, nl, e, dirs in ((32, 32, None, DIRS_16), (64, 64, None, DIRS_8),
                             (96, 81, 9, DIRS_8)):
@@ -221,7 +250,8 @@ def test_family_kernel_matches_plain_on_the_card(card):
                 got = agg.sgm_sweep_family(cost, tables, group, P1,
                                            s=s0.clone(), label_ext=e, nl=nl)
                 assert torch.equal(got, s0 + want.to(dtype)), (nd, group)
-        fused = agg.aggregate_paths(cost, img, dirs, P1, P2, True, 2841, e,
-                                    nl, fuse_families=True)
-        assert torch.equal(fused, agg.aggregate_paths(cost, img, dirs, P1,
-                                                      P2, True, 2841, e, nl))
+        assert agg.family_launch_pays(b, h, w, dirs,
+                                      agg.resident_warps(card))
+        assert torch.equal(agg.aggregate_paths(cost, img, dirs, P1, P2,
+                                               True, 2841, e, nl),
+                           _per_direction(cost, img, dirs, 2841, e, nl))
