@@ -8,17 +8,22 @@ stereo (stereo_sgm_batch, 16 frames of config 2 in one pass), tiled stereo
 (stereo_sgm_sharded at config 5, configs/tiled_4k.json: 2 frames of
 2160x3840, D=128, 2 frame shards x 4 row tiles, fast mode) and tiled flow
 (flow_fsgm_sharded, config 4 at 4K with 5 levels, 3 row tiles).  K2 runs
-as aggregate_paths chooses on the card: one family launch per direction
-group (sgm_sweep_family) for one KITTI frame and every flow level, one
-launch per direction (sgm_sweep) for 16 frames and on the tiled paths.
+as aggregate_paths plans it on the card (launch_plan, a choice a direction
+group): for one KITTI frame the vertical directions one launch each
+(sgm_sweep) and the horizontal pair in one family launch
+(sgm_sweep_family), every flow level in family launches, 16 frames and the
+tiled paths one launch per direction.
 Phases, each of which raises on failure (non-zero exit, no ok line):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the kernels from fsgm_tpu_torch/csrc, one nvcc per source (six
-     sources, eight entry points), all started together;
-  2. stereo kernels K1 census_cost, K2 sgm_sweep (1D labels), K3
-     extract_stereo against their plain PyTorch versions on the card,
-     exact, at the KITTI shape (random-dot pair) and at 37x53, D=32;
+     sources, nine entry points), all started together, and print the
+     -Xptxas -v record of every K2 instantiation (registers, shared
+     memory, spills);
+  2. stereo kernels K1 census_cost, K2 sgm_sweep (1D labels; each
+     direction with packed and with int32 labels) and K3 extract_stereo
+     against their plain PyTorch versions on the card, exact, at the KITTI
+     shape (random-dot pair) and at 37x53, D=32;
   3. flow kernels K5 label_minor_from_major, K2 sgm_sweep (2D labels) and
      K4 extract_flow against their plain versions, exact, on one flow level
      with a non-zero prior: the config-4 level-0 shape (375x1242, 81 labels
@@ -86,14 +91,17 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
      (wta_right) and K3 without it at KITTI and frame by frame over the
      S of 16 KITTI frames, wta_right at tools/strideroll_probe.py's shape
      (376x1280x128 int32); K1 with 9x7 census; the min16_probe forms
-     against torch.minimum; (b) aggregate_paths' K2 choice against the
-     other one forced, bit for bit, with both calls' launches counted and
-     timed per frame: stereo_sgm_batch at config 2 with 1 frame (family
-     launches) and 16 (per-direction launches), at config 1 with 16, and
-     flow_fsgm at config 4 (family launches); (c) CUDA-event ms of each new
-     kernel beside its plain version and bound, the family launches beside
-     the per-direction launches they replace (each count read from one
-     call), also over 2 to 8 KITTI frames around the choice's threshold.
+     against torch.minimum; (b) aggregate_paths' K2 plan against every
+     direction group forced to family launches and to per-direction
+     launches, bit for bit, the three calls' launches counted and held to
+     the plan and timed per frame: stereo_sgm_batch at config 2 with 1
+     frame and 16, at config 1 with 16, and flow_fsgm at config 4; (c)
+     CUDA-event ms of each new kernel beside its plain version and bound,
+     the family launches beside the per-direction launches they replace
+     (each count read from one call), each KITTI direction alone (ns a
+     step), and the plan against both forms over 1 to 8 KITTI frames
+     (D=128) and 1 to 16 config-1 frames (D=64) around the rule's
+     thresholds.
 
 Each kernel's bound_ms is the larger of two times for this run's shapes:
 the bytes it must move (each input read once, each output written once;
@@ -123,6 +131,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -149,10 +158,11 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 # kernel name: (csrc source, TPU kernel it replaces, the others, main
 # paths); the kernels line's `launches` is the first path's count,
-# launches_by_path all.  K2 is sgm_sweep_family on one KITTI frame and on
-# flow (aggregate_paths: family_launch_pays on one H100), sgm_sweep on 16
-# frames and on the tiled paths.  wta_right and min16_probe are on no path:
-# only phase 9 runs them.
+# launches_by_path all.  K2 is sgm_sweep and sgm_sweep_family on one KITTI
+# frame (aggregate_paths' launch_plan on one H100: the vertical group per
+# direction, the horizontal pair in one family launch), sgm_sweep_family on
+# flow, sgm_sweep on 16 frames and on the tiled paths.  wta_right and
+# min16_probe are on no path: only phase 9 runs them.
 SOURCES = {
     "census_cost": ("cost", "fsgm_tpu/ops/pallas/cost_tr.py:106",
                     ["fsgm_tpu/ops/pallas/cost_tr.py:264",
@@ -162,7 +172,7 @@ SOURCES = {
     "sgm_sweep": ("sgm_sweep", "fsgm_tpu/ops/pallas/aggregate_tr.py:289",
                   ["fsgm_tpu/ops/pallas/aggregate_pallas.py:297",
                    "fsgm_tpu/ops/pallas/aggregate_pallas.py:420"],
-                  ("stereo_batch", "stereo_tiled", "flow_tiled")),
+                  ("stereo_batch", "stereo", "stereo_tiled", "flow_tiled")),
     "sgm_sweep_family": ("sgm_sweep",
                          "fsgm_tpu/ops/pallas/aggregate_tr.py:451",
                          ["tools/trexp.py:102"], ("stereo", "flow")),
@@ -185,6 +195,38 @@ MIN16_N = 1 << 26               # values per min16_probe input
 CONFIG5 = "configs/tiled_4k.json"
 UHD_FLOW_LEVELS = 5  # bench.py's 4kflow leg: config 4 with one more level
 FOREIGN = ("jax", "fsgm_tpu", "golden")
+SGM_KERNELS = ("sgm_sweep", "sgm_sweep_family")  # K2's two launch forms
+
+
+def ptxas_record() -> dict:
+    """-Xptxas -v of sgm_sweep.cu (kept beside its library by _build):
+    registers, static shared memory and spill bytes of each K2
+    instantiation, keyed kernel<K, S type, mode, 2D, packed> (the family
+    kernel's mode is the atomic one), and the worst of each."""
+    from fsgm_tpu_torch.ops.kernels import _build
+    from fsgm_tpu_torch.utils.k2_bench import parse_ptxas
+    kinds = {}
+    for rec in parse_ptxas(_build.ptxas_log("sgm_sweep")):
+        m = re.search(r"(sgm_(?:sweep|family)_kernel)ILi(\d+)E([si])(.*?)EEv",
+                      rec["kernel"])
+        if not m:
+            continue
+        flags = re.findall(r"L[ib](\d+)", m.group(4))
+        mode = flags.pop(0) if m.group(1) == "sgm_sweep_kernel" else "2"
+        name = (f"{m.group(1)}<K={m.group(2)},"
+                f"{'int16' if m.group(3) == 's' else 'int32'},mode={mode},"
+                f"2d={flags[0]},packed={flags[1]}>")
+        kinds[name] = [rec["registers"], rec["smem"],
+                       rec["spill_stores"] + rec["spill_loads"]]
+    require(len(kinds) > 0, "no -Xptxas -v record for sgm_sweep.cu")
+    worst = dict(instantiations=len(kinds),
+                 max_registers=max(v[0] for v in kinds.values()),
+                 max_smem=max(v[1] for v in kinds.values()),
+                 spill_bytes=sum(v[2] for v in kinds.values()))
+    print(f"ptxas sgm_sweep.cu [registers, smem bytes, spill bytes]: "
+          f"{json.dumps(kinds)}; {json.dumps(worst)}")
+    return dict(worst, main={k: v for k, v in kinds.items() if "K=4," in k
+                             or "K=3,int16,mode=1,2d=1" in k})
 
 
 def require(ok: bool, what: str) -> None:
@@ -206,7 +248,9 @@ def card() -> str:
     return out.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+def median_ms(fn, reps: int = 10, warmup: int = 2, inner: int = 1) -> float:
+    """Median over reps of the ms of one fn() call, timed over ``inner``
+    calls back to back."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -215,10 +259,11 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
 
 
@@ -297,13 +342,17 @@ def check_kernels(shape, params, dev, dirs, tag: str) -> dict:
     require(errs["census_cost"] == 0, f"{tag} census_cost != plain")
 
     s_dtype = agg.plan_dtypes(params.s_invalid)
+    cap = agg.p2_bound(params.p1, params.p2)
     sweep_err = 0
     for r in dirs:
         p2e = agg.p2_effective(tl, r, params.p1, params.p2,
                                params.adaptive_p2)
-        got = agg.sgm_sweep(c, p2e, r, params.p1, s_dtype=s_dtype)
         want = agg.sgm_sweep_plain(c, p2e, r, params.p1)
-        e = max_err(got, want)
+        # with the P2' bound (packed labels where packed16 holds) and
+        # without one (int32 labels)
+        e = max(max_err(agg.sgm_sweep(c, p2e, r, params.p1, s_dtype=s_dtype,
+                                      p2_max=p2_max), want)
+                for p2_max in (cap, None))
         print(f"{tag} sgm_sweep direction {r}: max_abs_err {e}")
         require(e == 0, f"{tag} sgm_sweep {r} != plain")
         sweep_err = max(sweep_err, e)
@@ -314,8 +363,8 @@ def check_kernels(shape, params, dev, dirs, tag: str) -> dict:
     e = max_err(s, s_ref)
     require(s.dtype == s_ref.dtype and e == 0, f"{tag} S != plain")
     errs["sgm_sweep"] = sweep_err
-    k2 = k2_kernel(1, h, w, dirs, dev)  # the kernel that built S
-    errs[k2] = max(errs.get(k2, 0), e)
+    for k2 in k2_launches(c.shape, dev, dirs, params):  # built S
+        errs[k2] = max(errs.get(k2, 0), e)
 
     got = extract.extract_stereo(s, params.s_invalid, params.lr_max_diff,
                                  params.subpixel)
@@ -326,7 +375,8 @@ def check_kernels(shape, params, dev, dirs, tag: str) -> dict:
     print(f"{tag} extract_stereo max_abs_err {es}")
     require(all(v == 0 for v in es.values()), f"{tag} extract != plain")
     errs["extract_stereo"] = max(es.values())
-    print(f"{tag} kernels == plain: {errs}")
+    print(f"{tag} kernels == plain (packed labels "
+          f"{agg.packed16(s_dtype, d, params.p1, cap)}): {errs}")
     return errs
 
 
@@ -369,7 +419,8 @@ def check_batch_kernels(shape, b, params, dev, tag: str) -> dict:
     for r in params.dirs:
         p2e = agg.p2_effective(tl, r, params.p1, params.p2,
                                params.adaptive_p2)
-        got = agg.sgm_sweep(c, p2e, r, params.p1, s_dtype=s_dtype)
+        got = agg.sgm_sweep(c, p2e, r, params.p1, s_dtype=s_dtype,
+                            p2_max=agg.p2_bound(params.p1, params.p2))
         k2 = max(k2, max_err(got, agg.sgm_sweep_plain(c, p2e, r, params.p1)))
         del got
     require(k2 == 0, f"{tag} batched sgm_sweep != plain")
@@ -395,8 +446,8 @@ def check_batch_kernels(shape, b, params, dev, tag: str) -> dict:
                          if a is not None])
     require(k3 == 0, f"{tag} batched extract_stereo != plain")
     errs = {"census_cost": k1, "sgm_sweep": k2, "extract_stereo": k3}
-    k2 = k2_kernel(b, h, w, params.dirs, dev)  # the kernel that built S
-    errs[k2] = max(errs.get(k2, 0), k2_sum)
+    for k2 in k2_launches((b, h, w, d), dev, params.dirs, params):  # S
+        errs[k2] = max(errs.get(k2, 0), k2_sum)
     print(f"{tag} batched kernels == plain ({b} frames, S {s.dtype}): "
           f"{errs}")
     return errs
@@ -416,7 +467,8 @@ def check_batch_path(shape, b, params, dev, tag: str) -> dict:
     launches = dict(_build.LAUNCHES)
     print(f"launches in one stereo_sgm_batch call ({tag}, {b} frames): "
           f"{launches}")
-    want = {"census_cost": 1, **k2_launches(b, h, w, params.dirs, dev),
+    want = {"census_cost": 1, **k2_launches((b, h, w, d), dev, params.dirs,
+                                            params),
             "extract_stereo": 1}
     require(launches == want, f"{tag} batch launches {launches} != {want}")
     require(tuple(disp.shape) == (b, h, w) and disp.dtype == torch.float32
@@ -553,6 +605,7 @@ def flow_level(hw, params, dev) -> dict:
             for r in DIRS_8]
     return dict(img=t1, cost_m=cost_m, p2es=p2es, dirs=DIRS_8, nl=nl,
                 e=params.window_extent, p1=params.p1,
+                p2_max=agg.p2_bound(params.p1, params.p2),
                 s_dtype=agg.plan_dtypes(8 * (params.invalid_cost
                                              + params.p2)))
 
@@ -568,7 +621,7 @@ def flow_sweeps(lv, cost, plain: bool = False):
     s = None
     for r, p2e in zip(lv["dirs"], lv["p2es"]):
         s = agg.sgm_sweep(cost, p2e, r, lv["p1"], s=s, s_dtype=lv["s_dtype"],
-                          label_ext=lv["e"], nl=lv["nl"])
+                          label_ext=lv["e"], nl=lv["nl"], p2_max=lv["p2_max"])
     return s
 
 
@@ -636,7 +689,8 @@ def carry_case(cost, img, rows, dirs, p1, p2, adaptive, s_dtype, tag,
     from fsgm_tpu_torch.ops.kernels import aggregate as agg
     h = cost.shape[-3]
     lo, hi = rows
-    kw = dict(s_dtype=s_dtype, label_ext=label_ext, nl=nl)
+    kw = dict(s_dtype=s_dtype, label_ext=label_ext, nl=nl,
+              p2_max=agg.p2_bound(p1, p2))
 
     def part(a, b, r):
         p2e = agg.p2_effective(img[..., a:b, :].contiguous(), r, p1, p2,
@@ -866,7 +920,7 @@ def check_uhd_flow_tile(dev) -> dict:
         if r[0] == 0:
             s = agg.sgm_sweep(c_tile, p2e[lo:hi].contiguous(), r, lv["p1"],
                               s=s, s_dtype=lv["s_dtype"], label_ext=lv["e"],
-                              nl=lv["nl"])
+                              nl=lv["nl"], p2_max=lv["p2_max"])
     errs["extract_flow"] = k4_err(s, lv["nl"], lv["e"], tag)
     print(f"{tag}: K5, K2 with carry and K4 (S {s.dtype} "
           f"{tuple(s.shape)}) == plain: {errs}")
@@ -958,13 +1012,14 @@ def time_tiled(params, dev, card_line: str) -> dict:
     carries = [torch.randint(0, 300, (b, 2, w, d), generator=g,
                              dtype=torch.int32).to(dev) for _ in vert]
     s_dtype = agg.plan_dtypes(p5.s_invalid)
+    p2_max = agg.p2_bound(p5.p1, p5.p2)
 
     def family(plain: bool = False):
         sweep = agg.sgm_sweep_plain_into if plain else agg.sgm_sweep
         s = None
         for r, p2e, cin in zip(vert, p2es, carries):
             s, _ = sweep(c, p2e, r, p5.p1, s=s, s_dtype=s_dtype,
-                         init_carry=cin, return_carry=True)
+                         init_carry=cin, return_carry=True, p2_max=p2_max)
         return s
 
     hwd = b * ht * w * d
@@ -994,7 +1049,7 @@ def time_tiled(params, dev, card_line: str) -> dict:
         sweep = agg.sgm_sweep_plain_into if plain else agg.sgm_sweep
         s = None
         for r, p2e in zip(horiz, p2h):
-            s = sweep(c1, p2e, r, p5.p1, s=s, s_dtype=s_dtype)
+            s = sweep(c1, p2e, r, p5.p1, s=s, s_dtype=s_dtype, p2_max=p2_max)
         return s
 
     e = max_err(rows_sweeps(), rows_sweeps(True))
@@ -1034,35 +1089,54 @@ def time_tiled(params, dev, card_line: str) -> dict:
                 window=window_row)
 
 
-def k2_kernel(frames, h, w, dirs, dev) -> str:
-    """The K2 kernel that aggregate_paths launches for frames x H x W on
-    dev's card: sgm_sweep_family where family_launch_pays, else
-    sgm_sweep."""
+def k2_launches(shape, dev, dirs, params, s_max=None,
+                label_ext=None) -> dict:
+    """{kernel: launches} of one aggregate_paths call for a cost volume of
+    shape ((H, W, D) or (B, H, W, D)) on dev's card with params' P1 and P2
+    (and S bound s_max, default params.s_invalid): one sgm_sweep_family
+    launch for each direction group that launch_plan gives to the family
+    launch, one sgm_sweep launch for each direction of the others."""
     from fsgm_tpu_torch.ops.kernels import aggregate as agg
-    fused = agg.family_launch_pays(frames, h, w, dirs,
-                                   agg.resident_warps(dev))
-    return "sgm_sweep_family" if fused else "sgm_sweep"
+    plan = agg.launch_plan(shape, dev, dirs, params.p1, params.p2,
+                           params.s_invalid if s_max is None else s_max,
+                           label_ext)
+    out = {"sgm_sweep_family": sum(1 for _, fam in plan if fam),
+           "sgm_sweep": sum(len(g) for g, fam in plan if not fam)}
+    return {k: n for k, n in out.items() if n}
 
 
-def k2_launches(frames, h, w, dirs, dev) -> dict:
-    """{kernel: launches} of one aggregate_paths call (k2_kernel)."""
-    from fsgm_tpu_torch.ops.kernels import aggregate as agg
-    name = k2_kernel(frames, h, w, dirs, dev)
-    return {name: len(agg.direction_groups(dirs))
-            if name == "sgm_sweep_family" else len(dirs)}
+def flow_k2_launches(img, fparams, dev) -> dict:
+    """{kernel: launches} of K2 in one flow_fsgm call: aggregate_paths'
+    launches (k2_launches) on every pyramid level of the forward pass and
+    on the backward pass's levels (from level 1 with fb_backward="half",
+    every level otherwise)."""
+    from fsgm_tpu_torch.models.flow import build_pyramid
+    from fsgm_tpu_torch.params import DIRS_8
+    nd = -(-fparams.num_labels // 32) * 32
+    shapes = [tuple(p.shape) for p in build_pyramid(img, fparams.levels)]
+    if fparams.fb_check:
+        shapes += shapes[1 if fparams.fb_backward == "half" else 0:]
+    total: dict = {}
+    for h, w in shapes:
+        for k, n in k2_launches((h, w, nd), dev, DIRS_8, fparams,
+                                8 * (fparams.invalid_cost + fparams.p2),
+                                fparams.window_extent).items():
+            total[k] = total.get(k, 0) + n
+    return total
 
 
 @contextlib.contextmanager
 def k2_forced(fuse: bool):
-    """aggregate_paths with its K2 choice forced, whatever the card: family
-    launches (fuse) or one launch per direction."""
+    """aggregate_paths with its K2 choice forced, whatever the card: a
+    family launch for every direction group (fuse) or one launch per
+    direction."""
     from fsgm_tpu_torch.ops.kernels import aggregate as agg
-    keep = agg.resident_warps
-    agg.resident_warps = lambda device: (1 << 40) if fuse else 0
+    keep = agg.family_launch_pays
+    agg.family_launch_pays = lambda *args, **kwargs: fuse
     try:
         yield
     finally:
-        agg.resident_warps = keep
+        agg.family_launch_pays = keep
 
 
 def counted(fn):
@@ -1088,7 +1162,8 @@ def family_case(cost, img, dirs, p1, p2, adaptive, s_max, tag,
         tables = torch.stack([agg.p2_effective(img, r, p1, p2, adaptive)
                               for r in group])
         s = agg.sgm_sweep_family(cost, tables, group, p1, s=s,
-                                 s_dtype=s_dtype, label_ext=label_ext, nl=nl)
+                                 s_dtype=s_dtype, label_ext=label_ext, nl=nl,
+                                 p2_max=agg.p2_bound(p1, p2))
         part = agg.sgm_sweep_family_plain(cost, tables, group, p1, label_ext,
                                           nl)
         want = part if want is None else want.add_(part)
@@ -1116,9 +1191,9 @@ def group_tables(img, dirs, p1, p2, adaptive) -> list:
 
 
 def family_sweeps(cost, groups, p1, s_dtype, label_ext=None, nl=None,
-                  plain: bool = False):
+                  plain: bool = False, p2_max=None):
     """S of the family launches over prebuilt tables (or their plain
-    version)."""
+    version); p2_max the tables' bound."""
     from fsgm_tpu_torch.ops.kernels import aggregate as agg
     if plain:
         return sum(agg.sgm_sweep_family_plain(cost, t, g, p1, label_ext, nl)
@@ -1126,7 +1201,7 @@ def family_sweeps(cost, groups, p1, s_dtype, label_ext=None, nl=None,
     s = None
     for g, t in groups:
         s = agg.sgm_sweep_family(cost, t, g, p1, s=s, s_dtype=s_dtype,
-                                 label_ext=label_ext, nl=nl)
+                                 label_ext=label_ext, nl=nl, p2_max=p2_max)
     return s
 
 
@@ -1153,7 +1228,8 @@ def check_variant_kernels(params, fparams, dev) -> dict:
     s0 = agg.aggregate_paths(c, tl, horiz, params.p1, params.p2,
                              params.adaptive_p2, params.s_invalid)
     (_, tables), = group_tables(tl, down, **kw)
-    got = agg.sgm_sweep_family(c, tables, down, params.p1, s=s0.clone())
+    got = agg.sgm_sweep_family(c, tables, down, params.p1, s=s0.clone(),
+                               p2_max=agg.p2_bound(params.p1, params.p2))
     e = max_err(got, s0.to(torch.int32) + agg.sgm_sweep_family_plain(
         c, tables, down, params.p1))
     require(e == 0, f"down family into S != plain ({e})")
@@ -1251,67 +1327,92 @@ def check_variant_kernels(params, fparams, dev) -> dict:
 
 def check_family_choice(params, tparams, fparams, f1, f2, dev,
                         card_line: str) -> dict:
-    """9(b): each path with aggregate_paths' own K2 choice and with the
-    other one forced (k2_forced), equal bit for bit, the K2 launches of
-    both calls counted, and CUDA-event ms per frame of both: stereo at
-    config 2 with 1 frame (family launches on one H100) and with 16
-    (per-direction launches), config 1 with 16 frames, and flow at config
-    4 (family launches on every level).  Returns {cell: record}."""
+    """9(b): each path with aggregate_paths' own K2 plan (launch_plan: for
+    each direction group a family launch or one launch per direction) and
+    with every group forced each way (k2_forced), equal bit for bit, the K2
+    launches of the three calls counted and held to the plan, and
+    CUDA-event ms per frame of all three: stereo at config 2 with 1 frame
+    and with 16, config 1 with 16 frames, and flow at config 4.  Returns
+    {cell: record}."""
     from fsgm_tpu_torch import flow_fsgm, stereo_sgm_batch
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
 
     h, w, d = KITTI
     bl, br = frame_stack(h, w, d, BATCH, SEED, dev)
     tl, tr = frame_stack(*TSUKUBA, BATCH, SEED, dev)
     one_l, one_r = bl[:1].contiguous(), br[:1].contiguous()
-    cells = {
+    groups = len(agg.direction_groups(params.dirs))
+    cells = {  # tag: (call, frames, K2 launches of the plan, calls of it)
         "stereo config 2 B=1": (
-            lambda: stereo_sgm_batch(one_l, one_r, params), 1, True),
+            lambda: stereo_sgm_batch(one_l, one_r, params), 1,
+            k2_launches((1, h, w, d), dev, params.dirs, params), 1),
         f"stereo config 2 B={BATCH}": (
-            lambda: stereo_sgm_batch(bl, br, params), BATCH, False),
+            lambda: stereo_sgm_batch(bl, br, params), BATCH,
+            k2_launches((BATCH, h, w, d), dev, params.dirs, params), 1),
         f"stereo config 1 B={BATCH}": (
-            lambda: stereo_sgm_batch(tl, tr, tparams), BATCH, None),
-        "flow config 4": (lambda: flow_fsgm(f1, f2, fparams), 1, True)}
+            lambda: stereo_sgm_batch(tl, tr, tparams), BATCH,
+            k2_launches((BATCH,) + TSUKUBA, dev, tparams.dirs, tparams), 1),
+        "flow config 4": (
+            lambda: flow_fsgm(f1, f2, fparams), 1,
+            flow_k2_launches(f1, fparams, dev), None)}
     out = {}
-    for tag, (fn, frames, expect) in cells.items():
+    for tag, (fn, frames, want, calls) in cells.items():
         got, launches = counted(fn)
-        fused = "sgm_sweep_family" in launches
-        require("sgm_sweep" not in launches or not fused,
-                f"{tag}: both K2 kernels launched")
-        require(expect is None or fused == expect,
-                f"{tag}: aggregate_paths chose "
-                f"{'family' if fused else 'per-direction'} launches")
-        with k2_forced(not fused):
-            other, other_launches = counted(fn)
-            other_ms = median_ms(fn, reps=5) / frames
-        same = (all(torch.equal(a, b) for a, b in zip(got, other))
-                if isinstance(got, tuple) else torch.equal(got, other))
-        require(same, f"{tag}: family launches != per-direction launches")
-        k2 = launches.get("sgm_sweep_family", launches.get("sgm_sweep"))
-        k2_other = other_launches.get("sgm_sweep_family",
-                                      other_launches.get("sgm_sweep"))
-        # 8 paths: 8 launches per aggregate_paths call against 2
-        require(4 * (k2 if fused else k2_other) == (k2_other if fused
-                                                    else k2),
-                f"{tag}: K2 launches {launches} / {other_launches}")
-        out[tag] = dict(frames=frames, family=fused, launches=launches,
-                        ms=median_ms(fn, reps=5) / frames,
-                        other_launches=other_launches, other_ms=other_ms)
-        print(f"{tag}: aggregate_paths takes "
-              f"{'family' if fused else 'per-direction'} launches (K2 "
-              f"launches {k2} against {k2_other} the other way), == the "
-              f"other way bit for bit; {out[tag]['ms']:.4f} against "
-              f"{other_ms:.4f} ms per frame ({card_line})")
+        k2 = {k: n for k, n in launches.items() if k in SGM_KERNELS}
+        require(k2 == want, f"{tag}: K2 launches {k2} != the plan's {want}")
+        calls = calls or launches["extract_flow"]  # one K2 call a level
+        rec = dict(frames=frames, launches=k2,
+                   ms=median_ms(fn, reps=5) / frames)
+        for fuse, name in ((True, "family"), (False, "per_direction")):
+            with k2_forced(fuse):
+                other, other_launches = counted(fn)
+                rec[f"{name}_ms"] = median_ms(fn, reps=5) / frames
+            same = (all(torch.equal(a, b) for a, b in zip(got, other))
+                    if isinstance(got, tuple) else torch.equal(got, other))
+            require(same, f"{tag}: the plan's S != all {name} launches")
+            forced = {k: n for k, n in other_launches.items()
+                      if k in SGM_KERNELS}
+            rec[f"{name}_launches"] = forced
+            require(forced == ({"sgm_sweep_family": groups * calls} if fuse
+                               else {"sgm_sweep": 8 * calls}),
+                    f"{tag}: forced {name} launches {forced}")
+        out[tag] = rec
+        print(f"{tag}: aggregate_paths' plan launches {k2} == all family "
+              f"launches ({rec['family_launches']}) == all per-direction "
+              f"launches ({rec['per_direction_launches']}) bit for bit; "
+              f"{rec['ms']:.4f} against {rec['family_ms']:.4f} and "
+              f"{rec['per_direction_ms']:.4f} ms per frame ({card_line})")
     return out
 
 
-def time_family(params, fparams, dev, card_line: str) -> dict:
+def k2_by_plan(c, groups, plan, p1, s_dtype, p2_max, label_ext=None,
+               nl=None):
+    """S of K2 over prebuilt tables ([(group, stacked tables)]) as plan
+    ([bool] a group: one family launch, or one launch per direction)."""
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    kw = dict(s_dtype=s_dtype, label_ext=label_ext, nl=nl, p2_max=p2_max)
+    s = None
+    for (g, t), family in zip(groups, plan):
+        if family:
+            s = agg.sgm_sweep_family(c, t, g, p1, s=s, **kw)
+            continue
+        for i, r in enumerate(g):
+            s = agg.sgm_sweep(c, t[i], r, p1, s=s, **kw)
+    return s
+
+
+def time_family(params, tparams, fparams, dev, card_line: str) -> dict:
     """9(c): CUDA-event ms of the new kernels beside their plain versions,
     bounds and the per-direction launches (launches counted in one call
-    each), and K2's family and per-direction launches over 2 to 8 KITTI
-    frames, around the threshold of family_launch_pays."""
+    each); each of the 8 KITTI directions alone (ns a step); and K2 as
+    aggregate_paths' plan (launch_plan), all family launches and all
+    per-direction launches over 1 to 8 KITTI frames (D=128) and over 1 to
+    16 config-1 frames (D=64), around the thresholds of
+    family_launch_pays."""
     from fsgm_tpu_torch.ops.census import census_transform
     from fsgm_tpu_torch.ops.kernels import aggregate as agg
     from fsgm_tpu_torch.ops.kernels import cost, extract, probe, transpose
+    from fsgm_tpu_torch.utils.k2_bench import longest_line
 
     h, w, d = KITTI
     kw = dict(p1=params.p1, p2=params.p2, adaptive=params.adaptive_p2)
@@ -1320,25 +1421,24 @@ def time_family(params, fparams, dev, card_line: str) -> dict:
     hw = h * w
     rows = {}
 
-    def k2_pair(c, groups, p1, nl, s_dt, label_ext=None):
+    def k2_pair(c, groups, p1, nl, s_dt, label_ext=None, p2_max=None):
         """The family launches and the per-direction launches over the
         same prebuilt tables."""
-        flat = [(r, t[i]) for g, t in groups for i, r in enumerate(g)]
+        n = sum(len(g) for g, _ in groups)
 
         def family():
-            return family_sweeps(c, groups, p1, s_dt, label_ext, nl)
+            return k2_by_plan(c, groups, [True] * len(groups), p1, s_dt,
+                              p2_max, label_ext, nl)
 
         def per_direction():
-            s = None
-            for r, p2e in flat:
-                s = agg.sgm_sweep(c, p2e, r, p1, s=s, s_dtype=s_dt,
-                                  label_ext=label_ext, nl=nl)
-            return s
-        return family, per_direction, len(flat)
+            return k2_by_plan(c, groups, [False] * len(groups), p1, s_dt,
+                              p2_max, label_ext, nl)
+        return family, per_direction, n
 
-    def k2_row(c, groups, p1, nl, frames, s_dt, label_ext=None, ops=8):
+    def k2_row(c, groups, p1, nl, frames, s_dt, label_ext=None, ops=8,
+               p2_max=None):
         family, per_direction, n = k2_pair(c, groups, p1, nl, s_dt,
-                                           label_ext)
+                                           label_ext, p2_max)
         fhw = frames * c.shape[-3] * c.shape[-2]
         eb = torch.tensor([], dtype=s_dt).element_size()
         b_ms, b_by = bound(fhw * nl + n * fhw * 4 + fhw * nl * eb,
@@ -1358,8 +1458,24 @@ def time_family(params, fparams, dev, card_line: str) -> dict:
     c = cost.census_cost(census_transform(tl, params.census_window),
                          census_transform(tr, params.census_window), d,
                          params.invalid_cost)
+    bound_kw = dict(p2_max=agg.p2_bound(params.p1, params.p2))
     rows["family"] = k2_row(c, group_tables(tl, params.dirs, **kw),
-                            params.p1, d, 1, s_dtype)
+                            params.p1, d, 1, s_dtype, **bound_kw)
+    # each direction alone, fresh S, over 10 calls back to back (so that the
+    # wrapper's host work overlaps the card's): ms and ns a step of the
+    # direction's longest line
+    directions = []
+    for (g, t) in group_tables(tl, params.dirs, **kw):
+        for i, r in enumerate(g):
+            ms = median_ms(lambda: agg.sgm_sweep(c, t[i], r, params.p1,
+                                                 s_dtype=s_dtype, **bound_kw),
+                           inner=10)
+            steps = longest_line(h, w, r)
+            directions.append(dict(direction=list(r), ms=ms, steps=steps,
+                                   ns_per_step=ms * 1e6 / steps))
+    rows["directions"] = directions
+    print(f"K2 each KITTI direction alone (one frame, 10 calls back to "
+          f"back): {json.dumps(directions)} ({card_line})")
     # #14: the down family added into an S
     down = [r for r in params.dirs if r[0] == 1]
     (_, tables), = group_tables(tl, down, **kw)
@@ -1414,32 +1530,61 @@ def time_family(params, fparams, dev, card_line: str) -> dict:
                           census_transform(br, params.census_window), d,
                           params.invalid_cost)
     rows["family_batch"] = k2_row(bc, group_tables(bl, params.dirs, **kw),
-                                  params.p1, d, BATCH, s_dtype)
-    warps = agg.resident_warps(dev)
-    by_frames = {}
-    for b in (2, 3, 4, 6, 8):
-        family, per_direction, _ = k2_pair(
-            bc[:b], group_tables(bl[:b], params.dirs, **kw), params.p1, d,
-            s_dtype)
-        by_frames[b] = dict(
-            family_chosen=agg.family_launch_pays(b, h, w, params.dirs,
-                                                 warps),
-            ms=median_ms(family), per_direction_ms=median_ms(per_direction))
-    rows["family_batch"]["by_frames"] = by_frames
-    print(f"K2 over B KITTI frames, family against per-direction launches "
-          f"(resident warps {warps}): {json.dumps(by_frames)} "
-          f"({card_line})")
+                                  params.p1, d, BATCH, s_dtype, **bound_kw)
+
+    def by_frames(cost_b, img_b, p, frame_counts):
+        """{B: K2 as aggregate_paths' plan, all family and all
+        per-direction launches over the first B frames}."""
+        out = {}
+        for b in frame_counts:
+            cb = cost_b[:b].contiguous()
+            groups = group_tables(img_b[:b].contiguous(), p.dirs,
+                                  p1=p.p1, p2=p.p2, adaptive=p.adaptive_p2)
+            plan = [fam for _, fam in agg.launch_plan(
+                cb.shape, dev, p.dirs, p.p1, p.p2, p.s_invalid)]
+            family, per_direction, _ = k2_pair(
+                cb, groups, p.p1, cb.shape[-1], s_dtype, None,
+                agg.p2_bound(p.p1, p.p2))
+            out[b] = dict(plan=plan, ms=median_ms(lambda: k2_by_plan(
+                cb, groups, plan, p.p1, s_dtype, agg.p2_bound(p.p1, p.p2))),
+                family_ms=median_ms(family),
+                per_direction_ms=median_ms(per_direction))
+        return out
+
+    warps = {nd: agg.resident_warps(dev, nd, s_dtype, False, True)
+             for nd in (64, 128)}
+    rows["family_batch"]["by_frames"] = by_frames(bc, bl, params,
+                                                  (1, 2, 3, 4, 6, 8))
     del bc, bl, br
     torch.cuda.empty_cache()
+    th, tw, td = TSUKUBA
+    ts_l, ts_r = frame_stack(th, tw, td, BATCH, SEED, dev)
+    ts_c = cost.census_cost(census_transform(ts_l, tparams.census_window),
+                            census_transform(ts_r, tparams.census_window),
+                            td, tparams.invalid_cost)
+    rows["family_batch"]["by_frames_d64"] = by_frames(ts_c, ts_l, tparams,
+                                                      (1, 2, 4, 8, 16))
+    rows["family_batch"]["resident_warps"] = warps
+    del ts_l, ts_r, ts_c
+    print(f"K2 over B frames as aggregate_paths' plan (a bool a direction "
+          f"group: family launch), all family and all per-direction "
+          f"launches, config 2 (D=128): "
+          f"{json.dumps(rows['family_batch']['by_frames'])}; config 1 "
+          f"(D=64): {json.dumps(rows['family_batch']['by_frames_d64'])}; "
+          f"resident warps of the per-direction kernel {warps} "
+          f"({card_line})")
     lv = flow_level(FLOW_HW, fparams, dev)
     fc = transpose.label_minor_from_major(lv.pop("cost_m"))
     tables = dict(zip(lv["dirs"], lv["p2es"]))
     groups = [(gr, torch.stack([tables[r] for r in gr]))
               for gr in agg.direction_groups(lv["dirs"])]
     rows["family_2d"] = k2_row(fc, groups, lv["p1"], lv["nl"], 1,
-                               lv["s_dtype"], label_ext=lv["e"], ops=11)
+                               lv["s_dtype"], label_ext=lv["e"], ops=11,
+                               p2_max=lv["p2_max"])
     del lv, fc, tables, groups
     for name, row in rows.items():
+        if name == "directions":
+            continue
         extra = "".join(f", {k} {row[k]:.4f} ms" for k in
                         ("per_direction_ms", "with_lr_ms") if k in row)
         print(f"time {name}: kernel {row['ms']:.4f} ms{extra}, plain "
@@ -1493,7 +1638,8 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     # 1. build: one nvcc per source, all started together
-    require(sorted(SOURCES) == sorted(_build.ENTRY), "a kernel is not checked")
+    require(sorted(SOURCES) == sorted(_build.KERNELS),
+            "a kernel is not checked")
     require(all(SOURCES[k][0] == _build.ENTRY[k][0] for k in SOURCES),
             "SOURCES names another library than _build.ENTRY")
     t0 = time.perf_counter()
@@ -1501,8 +1647,9 @@ def main() -> int:
     for name in SOURCES:
         _build.load(name)
     print(f"build {', '.join(f'{lib}.cu' for lib in _build.LIBRARIES)} "
-          f"({len(SOURCES)} entry points): "
+          f"({len(_build.ENTRY)} entry points): "
           f"{time.perf_counter() - t0:.2f} s")
+    k2_ptxas = ptxas_record()
 
     # 2. stereo kernels against their plain versions
     params = load_preset("configs/kitti_stereo.json")["sgm"]
@@ -1535,7 +1682,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {"stereo": dict(_build.LAUNCHES)}
     print(f"launches in one stereo_sgm call: {launches['stereo']}")
-    want = {"census_cost": 1, **k2_launches(1, h, w, params.dirs, dev),
+    want = {"census_cost": 1, **k2_launches((h, w, d), dev, params.dirs,
+                                            params),
             "extract_stereo": 1}
     require(launches["stereo"] == want, f"stereo launches != {want}")
     ref = stereo_sgm_reference(tl, tr, params)
@@ -1558,11 +1706,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches["flow"] = dict(_build.LAUNCHES)
     print(f"launches in one flow_fsgm call: {launches['flow']}")
-    level_calls = launches["flow"].get("extract_flow", 0)
-    want = {k: n * level_calls for k, n in k2_launches(
-        1, fh, fw, DIRS_8, dev).items()}  # level 0 has the most lines
-    require({k: launches["flow"].get(k) for k in want} == want
-            and len(launches["flow"]) == 3, f"flow K2 launches != {want}")
+    want = flow_k2_launches(f1, fparams, dev)
+    got = {k: n for k, n in launches["flow"].items() if k in SGM_KERNELS}
+    require(got == want and len(launches["flow"]) == 2 + len(want),
+            f"flow K2 launches {got} != {want}")
     fref, fref_valid = flow_fsgm_reference(f1, f2, fparams)
     require(tuple(flow.shape) == (fh, fw, 2) and flow.dtype == torch.float32
             and bool(torch.isfinite(flow).all()), "flow shape / finiteness")
@@ -1606,13 +1753,15 @@ def main() -> int:
     cost_args = (cl, cr, d, params.invalid_cost)
     c = cost.census_cost(*cost_args)
     s_dtype = agg.plan_dtypes(params.s_invalid)
+    p2_max = agg.p2_bound(params.p1, params.p2)
     p2es = [agg.p2_effective(tl, r, params.p1, params.p2, params.adaptive_p2)
             for r in params.dirs]
 
     def sweeps():
         s = None
         for r, p2e in zip(params.dirs, p2es):
-            s = agg.sgm_sweep(c, p2e, r, params.p1, s=s, s_dtype=s_dtype)
+            s = agg.sgm_sweep(c, p2e, r, params.p1, s=s, s_dtype=s_dtype,
+                              p2_max=p2_max)
         return s
 
     def sweeps_plain():
@@ -1714,7 +1863,8 @@ def main() -> int:
                        for r, p2e in zip(params.dirs, bp2es)).to(s_dtype)
         s = None
         for r, p2e in zip(params.dirs, bp2es):
-            s = agg.sgm_sweep(bc, p2e, r, params.p1, s=s, s_dtype=s_dtype)
+            s = agg.sgm_sweep(bc, p2e, r, params.p1, s=s, s_dtype=s_dtype,
+                              p2_max=p2_max)
         return s
 
     bext_args = (bsweeps(), params.s_invalid, params.lr_max_diff,
@@ -1785,7 +1935,7 @@ def main() -> int:
     errs = merge_errs(errs, check_variant_kernels(params, fparams, dev))
     choice = check_family_choice(params, tparams, fparams, f1, f2, dev,
                                  card_line)
-    vtimes = time_family(params, fparams, dev, card_line)
+    vtimes = time_family(params, tparams, fparams, dev, card_line)
     print(f"phase 9: {time.perf_counter() - t9:.2f} s")
     times["sgm_sweep_family"] = {k: vtimes["family"][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -1813,6 +1963,8 @@ def main() -> int:
                                        for p in paths}
         if name == "sgm_sweep":  # the row's times: 1D labels, stereo frame
             row["label_2d"] = times["sgm_sweep_2d"]
+            row["directions"] = vtimes["directions"]
+            row["ptxas"] = k2_ptxas
             row["carry"] = tiled_times["carry"]
             row["tile_horizontal"] = tiled_times["tile_horizontal"]
         if name == "extract_stereo":

@@ -4,17 +4,22 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface and loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/fsgm_tpu_torch/lib<name>_<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas -v \\
+         -o build/fsgm_tpu_torch/lib<name>_<hash>.so <name>.cu
 
 No ``--use_fast_math``: the extraction kernel's f32 division must stay IEEE
-to reproduce the host's rint(subpixel) bit for bit.  The library name
-carries a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one loads from the build directory.  The build happens at
+to reproduce the host's rint(subpixel) bit for bit.  ``-Xptxas -v`` reports
+each kernel's registers, shared memory and spills; the report is kept
+beside the library (``ptxas_log``).  The library name carries a hash of the
+source, of the csrc headers it includes (``included_headers``) and of the
+flags, so an edit to any of them rebuilds it and an unchanged one loads
+from the build directory.  The build happens at
 first use, never at import: importing this module needs no CUDA toolkit.
 
 A library may hold several entry points (``ENTRY`` maps each kernel name
-to its library, symbol and C signature).  Every C entry point returns
-``cudaGetLastError()`` after its launch;
+to its library, symbol and C signature; ``QUERIES`` are the entries that
+launch nothing, such as K2's occupancy, and ``KERNELS`` the others).
+Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception.  ``LAUNCHES`` counts the
 kernel launches made by the wrappers in ``ops/kernels/*.py``: each wrapper
 adds one where it launches its kernel, and nowhere else.
@@ -28,6 +33,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,7 +43,7 @@ SRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "fsgm_tpu_torch"
 NVCC_FALLBACK = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,9 +52,11 @@ _I = ctypes.c_int
 ENTRY = {
     "census_cost": ("cost", "fsgm_census_cost",
                     [_P, _P, _P] + [_I] * 6 + [_P]),
-    "sgm_sweep": ("sgm_sweep", "fsgm_sgm_sweep", [_P] * 5 + [_I] * 11 + [_P]),
+    "sgm_sweep": ("sgm_sweep", "fsgm_sgm_sweep", [_P] * 5 + [_I] * 12 + [_P]),
     "sgm_sweep_family": ("sgm_sweep", "fsgm_sgm_sweep_family",
-                         [_P] * 3 + [_I] * 9 + [_P, _I, _P]),
+                         [_P] * 3 + [_I] * 10 + [_P, _I, _P]),
+    "sgm_sweep_occupancy": ("sgm_sweep", "fsgm_sgm_sweep_occupancy",
+                            [_I] * 5 + [_P]),
     "extract_stereo": ("extract", "fsgm_extract_stereo",
                        [_P, _I] + [_P] * 5 + [_I] * 10 + [_P]),
     "wta_right": ("extract", "fsgm_wta_right", [_P, _I, _P] + [_I] * 5 + [_P]),
@@ -60,6 +68,9 @@ ENTRY = {
                     [_P, _P, _P, ctypes.c_longlong, _I, _P]),
 }
 LIBRARIES = sorted({lib for lib, _, _ in ENTRY.values()})
+# entry points that launch nothing: they answer a question about a kernel
+QUERIES = ("sgm_sweep_occupancy",)
+KERNELS = tuple(name for name in ENTRY if name not in QUERIES)
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -78,12 +89,34 @@ def find_nvcc() -> str:
         "plain PyTorch versions instead")
 
 
+def included_headers(src: Path) -> list[Path]:
+    """The csrc headers that src includes by a quoted name, and theirs."""
+    found: list[Path] = []
+    todo = [src]
+    while todo:
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                               todo.pop().read_text(), flags=re.M):
+            header = src.parent / name
+            if header.exists() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return sorted(found)
+
+
+def source_digest(src: Path) -> str:
+    """Hash of src, the csrc headers it includes and the nvcc flags: the
+    library's name, so that an edit to any of them rebuilds it."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in included_headers(src):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build_library(name: str) -> Path:
     """Compile csrc/<name>.cu (if not built yet) and return the .so path."""
     src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}_{digest}.so"
+    lib = BUILD_DIR / f"lib{name}_{source_digest(src)}.so"
     if lib.exists():
         return lib
     nvcc = find_nvcc()
@@ -95,11 +128,18 @@ def build_library(name: str) -> Path:
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+        lib.with_suffix(".ptxas.txt").write_text(proc.stderr)
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return lib
+
+
+def ptxas_log(name: str) -> str:
+    """The ``-Xptxas -v`` report of library csrc/<name>.cu, built if need
+    be."""
+    return build_library(name).with_suffix(".ptxas.txt").read_text()
 
 
 def build_all() -> list[Path]:

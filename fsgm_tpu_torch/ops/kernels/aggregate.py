@@ -1,4 +1,4 @@
-"""K2 sgm_sweep: SGM path aggregation, one direction per launch.
+"""K2: SGM path aggregation, one direction or one direction group a launch.
 
 Replaces fsgm_tpu/ops/pallas/aggregate_tr.py::tr_family_sweep (and its
 entries aggregate_paths_tr and, for B frames, aggregate_paths_tr_batch) on
@@ -17,8 +17,13 @@ pad slots out of every neighbour min and every m, and its S is 0 there.
 The TPU's direction families, transposed horizontal volume, lane folds,
 pads and knight parity slots were Mosaic layout devices and have no
 counterpart: the CUDA kernel (csrc/sgm_sweep.cu) walks each path line of
-one direction with one warp, for all B frames in one launch.  Every
-function here takes (H, W, ...) as B = 1.
+one direction with one warp, for all B frames in one launch, its steps
+arriving through a ring of cp.async copies in shared memory, its labels
+carried as packed 16-bit pairs where ``packed16`` holds (int16 S, D/32
+even and a stated bound ``p2_max`` on the P2' table; ``p2_bound`` gives it
+for p2_effective's tables) and as int32 otherwise.  ``ring_plan`` mirrors
+the kernel's shared memory.  Every function here takes (H, W, ...) as
+B = 1.
 
 Carry (tiled execution, fsgm_tpu_torch/parallel): a vertical direction
 (dy != 0) can start from and export the scan state of fsgm_tpu/ops/
@@ -43,22 +48,24 @@ and tools/trexp.py::tr_row_family_sweep (the dy = 1 family added into a
 given S).  The kernel's S updates are atomic adds, exact for int16 S while
 every S value stays in [0, 2^15), which plan_dtypes guarantees for the S it
 plans.  It takes no carry: the tiled paths keep the per-direction launches.
-``aggregate_paths`` takes the family launches where one direction's lines
-of all B frames (one warp each) fill less than half of the warps the card
-holds at once (``family_launch_pays``): there the per-direction launches
-leave the card mostly idle, and the family launch fills it.  Where one
-direction fills half the card or more, the per-direction launches win,
-because they need no atomics.  Both give the same S bit for bit.
+``aggregate_paths`` plans its launches per direction group (``launch_plan``):
+a group takes one family launch where its lines of all B frames are few
+against the resident warps of the per-direction kernel, which the card
+reports for the instantiation that would run (``resident_warps``,
+``family_launch_pays``); there the per-direction launches leave the card
+mostly idle and wait one after another.  Elsewhere the per-direction
+launches win, because they need no atomics.  Both give the same S bit for
+bit.
 
 Also here, from fsgm_tpu/ops/pallas/aggregate_pallas.py: ``p2_effective``
 (the P2' table, adaptive or not, with the two image rows beyond a tile's
-seam) and ``plan_dtypes`` (int16 S where the preset's bound allows it; the
-kernel computes in int32 either way).
+seam) and ``plan_dtypes`` (int16 S where the preset's bound allows it).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -67,12 +74,62 @@ from fsgm_tpu_torch.ops.kernels import _build
 
 INF = 1 << 30  # out-of-range label neighbour; INF + P2 + Cmax fits int32
 MAX_FAMILY = 16  # directions of one family launch
+# K2's packed labels (csrc/sgm_sweep.cu): unsigned 16-bit halves, SENTINEL
+# marking an absent label.  Every L = C + (best - m) is at most 255 + P2'
+# and every intermediate at most m + P2' <= 255 + 2 P2' or SENTINEL + P1,
+# so P2' <= PACKED_P2_MAX and P1 <= PACKED_P1_MAX keep each half exact.
+SENTINEL = 0x8000
+PACKED_P2_MAX = (SENTINEL - 255) // 2
+PACKED_P1_MAX = 0xFFFF - SENTINEL
+# the ring of csrc/sgm_walk.cuh: four warps a block, at most RING_MAX steps
+# of at most RING_BUDGET bytes a warp
+WARPS_PER_BLOCK = 4
+RING_MAX = 16
+RING_BUDGET = 11264
+MODES = ("fresh", "accum", "atomic")  # how a launch writes S
+FAMILY_SHARE = 0.42  # family_launch_pays, fitted on the chip (PERF.md)
 
 
 def plan_dtypes(s_max: int | None) -> torch.dtype:
     """S storage dtype: int16 when the largest S (s_max) fits, else int32."""
     return torch.int16 if s_max is not None and s_max < (1 << 15) \
         else torch.int32
+
+
+def p2_bound(p1: int, p2: int) -> int | None:
+    """A bound on every value p2_effective gives for p1, p2 (adaptive or
+    not), or None where a table may hold a negative value."""
+    return max(p2, p1 + 1) if min(p1, p2) >= 0 else None
+
+
+def packed16(s_dtype: torch.dtype, nd: int, p1: int,
+             p2_max: int | None) -> bool:
+    """Whether K2 carries the labels as packed 16-bit pairs: int16 S, an
+    even number K = D/32 of labels a lane, 0 <= P1 <= PACKED_P1_MAX and
+    every P2' in [0, p2_max] with p2_max <= PACKED_P2_MAX, i.e. 255 + 2 P2'
+    <= SENTINEL and SENTINEL + P1 <= 0xFFFF (csrc/sgm_sweep.cu).  Otherwise
+    K2 computes in int32; both give the same S bit for bit."""
+    return (s_dtype == torch.int16 and nd % 64 == 0
+            and 0 <= p1 <= PACKED_P1_MAX and p2_max is not None
+            and 0 <= p2_max <= PACKED_P2_MAX)
+
+
+def ring_plan(nd: int, s_dtype: torch.dtype, mode: str,
+              label_2d: bool = False, packed: bool = False) -> dict:
+    """The shared memory of one K2 block (csrc/sgm_walk.cuh): ``steps`` of
+    the ring (the largest power of two from 4 up to RING_MAX whose slots
+    with an S row fit RING_BUDGET a warp), ``slot_bytes`` (the cost row,
+    and the S row for "accum") and ``block_bytes`` (the four warps' rings,
+    their two blocks of 32 P2' values and, for the 2D rule, their rows of
+    the previous L)."""
+    k, sb = nd // 32, torch.tensor([], dtype=s_dtype).element_size()
+    steps = RING_MAX
+    while steps > 4 and steps * 32 * k * (1 + sb) > RING_BUDGET:
+        steps //= 2
+    slot = 32 * k * (1 + (sb if mode == "accum" else 0))
+    row = nd * (2 if packed else 4) if label_2d else 0
+    return dict(steps=steps, slot_bytes=slot,
+                block_bytes=WARPS_PER_BLOCK * (steps * slot + row + 64 * 4))
 
 
 def p2_effective(img: torch.Tensor, direction: Tuple[int, int], p1: int,
@@ -169,6 +226,12 @@ def _check_carry(cost: torch.Tensor, direction: Tuple[int, int],
         raise ValueError("carry and cost lie on different devices")
 
 
+def _check_aligned(cost: torch.Tensor, s: torch.Tensor, name: str) -> None:
+    """The kernel copies cost and S rows in 16-byte pieces."""
+    if cost.data_ptr() % 16 or s.data_ptr() % 16:
+        raise ValueError(f"{name} needs cost and S aligned to 16 bytes")
+
+
 def sgm_sweep_plain(cost: torch.Tensor, p2e: torch.Tensor,
                     direction: Tuple[int, int], p1: int,
                     label_ext: int | None = None,
@@ -233,10 +296,12 @@ def sgm_sweep_plain_into(cost: torch.Tensor, p2e: torch.Tensor,
                          label_ext: int | None = None,
                          nl: int | None = None,
                          init_carry: torch.Tensor | None = None,
-                         return_carry: bool = False):
+                         return_carry: bool = False,
+                         p2_max: int | None = None):
     """sgm_sweep's contract (S += L_r, or a fresh S) through
     sgm_sweep_plain, on any device: what sgm_sweep does for CPU tensors,
-    and what the tiled path's plain twin calls on the card."""
+    and what the tiled path's plain twin calls on the card (p2_max, a
+    bound for the kernel's arithmetic, changes nothing here)."""
     got = sgm_sweep_plain(cost, p2e, direction, p1, label_ext, nl,
                           init_carry, return_carry)
     l_r, carry = got if return_carry else (got, None)
@@ -252,7 +317,8 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
               label_ext: int | None = None,
               nl: int | None = None,
               init_carry: torch.Tensor | None = None,
-              return_carry: bool = False):
+              return_carry: bool = False,
+              p2_max: int | None = None):
     """Aggregate one direction: S += L_r in place and return S, or, with
     s None, return a fresh S = L_r in s_dtype; with return_carry, return
     (S, carry out).
@@ -261,7 +327,9 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
     labels; p2e (H, W) or (B, H, W) int32 from p2_effective; |dy|, |dx| <=
     2; label_ext e: the labels form an (e x e) grid (flow), None: a line
     (stereo); init_carry (B, 2, W, D) (or (2, W, D)) int32 for dy != 0
-    (module docstring).  One kernel launch covers all B frames, each with
+    (module docstring); p2_max: a bound on p2e's values (p2_bound), with
+    which the kernel may carry packed 16-bit labels (packed16), None if the
+    caller knows none.  One kernel launch covers all B frames, each with
     its own carry slice."""
     dy, dx = direction
     _check_direction(direction)
@@ -299,6 +367,7 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
     fresh = s is None
     if fresh:
         s = torch.empty(cost.shape, dtype=s_dtype, device=cost.device)
+    _check_aligned(cost, s, "sgm_sweep")
     carry = None
     if return_carry:
         # with H = 1 no walk reaches carry row 1: it is carry-in row 0
@@ -314,7 +383,8 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
             err = fn(cost.data_ptr(), p2e.data_ptr(), s.data_ptr(),
                      init_carry.data_ptr() if init_carry is not None else None,
                      carry.data_ptr() if carry is not None else None,
-                     int(s_dtype == torch.int32), int(fresh), b, h, w, nd,
+                     int(s_dtype == torch.int32), int(fresh),
+                     int(packed16(s_dtype, nd, p1, p2_max)), b, h, w, nd,
                      nl, label_ext or 0, dy, dx, p1, _build.stream_of(cost))
         _build.check(err, "sgm_sweep")
         _build.LAUNCHES["sgm_sweep"] += 1
@@ -337,12 +407,14 @@ def sgm_sweep_family(cost: torch.Tensor, p2e_tables: torch.Tensor,
                      s: torch.Tensor | None = None,
                      s_dtype: torch.dtype = torch.int16,
                      label_ext: int | None = None,
-                     nl: int | None = None) -> torch.Tensor:
+                     nl: int | None = None,
+                     p2_max: int | None = None) -> torch.Tensor:
     """Aggregate several directions in one launch: S += sum_r L_r in place
     and return S, or, with s None, return a fresh S = sum_r L_r in
     s_dtype.  cost, label_ext and nl as for sgm_sweep; p2e_tables
     (n, B, H, W) int32 ((n, H, W) without a frame axis): table j is the
-    P2' of direction j, as p2_effective gives it; at most 16 directions.
+    P2' of direction j, as p2_effective gives it; at most 16 directions;
+    p2_max as for sgm_sweep.
     An int16 S must hold values in [0, 2^15) before and after (the
     kernel's atomic adds; plan_dtypes guarantees it for its S).  The family
     launch takes no carry (module docstring): the tiled paths sweep one
@@ -387,8 +459,7 @@ def sgm_sweep_family(cost: torch.Tensor, p2e_tables: torch.Tensor,
     fresh = s is None
     if fresh:
         s = torch.empty(cost.shape, dtype=s_dtype, device=cost.device)
-    if s.data_ptr() % 4 != 0:
-        raise ValueError("sgm_sweep_family needs S aligned to 4 bytes")
+    _check_aligned(cost, s, "sgm_sweep_family")
     if s.numel() > 0:
         b = cost.shape[0] if cost.dim() == 4 else 1
         flat = [v for r in directions for v in r]
@@ -396,7 +467,8 @@ def sgm_sweep_family(cost: torch.Tensor, p2e_tables: torch.Tensor,
         fn = _build.load("sgm_sweep_family")
         with torch.cuda.device(cost.device):
             err = fn(cost.data_ptr(), p2e_tables.data_ptr(), s.data_ptr(),
-                     int(s_dtype == torch.int32), int(fresh), b, h, w, nd,
+                     int(s_dtype == torch.int32), int(fresh),
+                     int(packed16(s_dtype, nd, p1, p2_max)), b, h, w, nd,
                      nl, label_ext or 0, len(directions), dirs, p1,
                      _build.stream_of(cost))
         _build.check(err, "sgm_sweep_family")
@@ -421,27 +493,70 @@ def lines_per_frame(h: int, w: int, direction: Tuple[int, int]) -> int:
     return band * w + (h - band) * min(dx, w)
 
 
-def resident_warps(device: torch.device) -> int:
-    """The warps the card of device holds at once (SMs x threads per SM /
-    32); 0 off the card, where no kernel runs."""
+def resident_warps(device: torch.device, nd: int, s_dtype: torch.dtype,
+                   label_2d: bool = False, packed: bool = False,
+                   mode: str = "accum") -> int:
+    """The warps of K2's instantiation for (D, S type, label rule, packed,
+    mode) that the card of device holds at once: its occupancy on one SM
+    (fsgm_sgm_sweep_occupancy, which asks the CUDA runtime about the built
+    kernel) times the SMs; 0 off the card, where no kernel runs."""
     if device.type != "cuda":
         return 0
-    props = torch.cuda.get_device_properties(device)
-    return (props.multi_processor_count
-            * props.max_threads_per_multi_processor // 32)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _resident_warps(index, nd, s_dtype == torch.int32, label_2d,
+                           packed, MODES.index(mode))
+
+
+@functools.cache
+def _resident_warps(index: int, nd: int, s_int32: bool, label_2d: bool,
+                    packed: bool, mode: int) -> int:
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.load("sgm_sweep_occupancy")(
+            int(s_int32), mode, int(label_2d), int(packed), nd,
+            ctypes.byref(per_sm))
+    _build.check(err, "sgm_sweep_occupancy")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * per_sm.value
 
 
 def family_launch_pays(frames: int, h: int, w: int,
-                       dirs: Sequence[Tuple[int, int]], warps: int) -> bool:
-    """Whether aggregate_paths sweeps in family launches: when even the
-    direction with the most lines, over all frames, gives fewer warps than
-    half of the card's ``warps`` resident ones, so that a launch per
-    direction leaves most of the card idle.  The half is measured: on one
-    H100 (8,448 resident warps) the family launches of a KITTI frame's 8
-    directions beat the per-direction launches at 1 and 2 frames (1,616
-    and 3,232 lines) and lose from 4 frames (6,464) on (PERF.md); every
-    flow level of a KITTI frame takes them."""
-    return 2 * frames * max(lines_per_frame(h, w, r) for r in dirs) < warps
+                       group: Sequence[Tuple[int, int]], nd: int,
+                       warps: int) -> bool:
+    """Whether one family launch of a direction group beats one launch per
+    direction: while frames x the most lines of one direction
+    (lines_per_frame) x K^1.5 stays below FAMILY_SHARE x the group's
+    directions x ``warps``, the resident warps of the per-direction kernel
+    (resident_warps), K = D / 32 the labels a lane holds.  A per-direction
+    launch whose lines (one warp each) leave most of the card idle waits on
+    its serial chain, and the group's launches wait one after another; the
+    family launch walks them side by side but adds into S by atomics, K / 2
+    words a step and direction, which cost more against the per-direction
+    read-modify-write the more labels a lane holds.  FAMILY_SHARE and the
+    power of K are fitted on the chip at D = 64 and D = 128 (PERF.md)."""
+    k = nd // 32
+    most = max(lines_per_frame(h, w, r) for r in group)
+    return frames * most * k * k ** 0.5 < FAMILY_SHARE * len(group) * warps
+
+
+def launch_plan(shape: Sequence[int], device: torch.device,
+                dirs: Sequence[Tuple[int, int]], p1: int, p2: int,
+                s_max: int | None = None,
+                label_ext: int | None = None) -> list:
+    """aggregate_paths' K2 launches for a cost volume of ``shape`` ((H, W,
+    D) or (B, H, W, D)) on ``device``: [(direction group, True for one
+    family launch or False for one launch per direction)] over
+    direction_groups(dirs), each group by family_launch_pays over the
+    resident warps of the per-direction kernel that would run
+    (resident_warps)."""
+    h, w, nd = shape[-3:]
+    frames = shape[0] if len(shape) == 4 else 1
+    s_dtype = plan_dtypes(s_max)
+    warps = resident_warps(device, nd, s_dtype, label_ext is not None,
+                           packed16(s_dtype, nd, p1, p2_bound(p1, p2)))
+    return [(group, family_launch_pays(frames, h, w, group, nd, warps))
+            for group in direction_groups(dirs)]
 
 
 def aggregate_paths(cost: torch.Tensor, img: torch.Tensor,
@@ -451,24 +566,25 @@ def aggregate_paths(cost: torch.Tensor, img: torch.Tensor,
                     label_ext: int | None = None,
                     nl: int | None = None) -> torch.Tensor:
     """S = sum_r L_r for all frames; cost's shape ((H, W, D) or
-    (B, H, W, D), img (H, W) or (B, H, W)) in plan_dtypes(s_max).  One
-    sgm_sweep_family launch per direction group (direction_groups: 2 for 8
-    or 16 paths) where family_launch_pays on cost's card, else one
-    sgm_sweep launch per direction.  Both give the same S bit for bit."""
-    s_dtype = plan_dtypes(s_max)
-    h, w = cost.shape[-3:-1]
-    frames = cost.shape[0] if cost.dim() == 4 else 1
+    (B, H, W, D), img (H, W) or (B, H, W)) in plan_dtypes(s_max).  For
+    each direction group (direction_groups: dy != 0, then dy = 0) one
+    sgm_sweep_family launch where launch_plan gives it the family launch on
+    cost's card, else one sgm_sweep launch per direction; the P2' bound
+    p2_bound(p1, p2) lets the kernel carry packed labels.  Every plan gives
+    the same S bit for bit."""
+    kw = dict(s_dtype=plan_dtypes(s_max), label_ext=label_ext, nl=nl,
+              p2_max=p2_bound(p1, p2))
     s = None
-    if family_launch_pays(frames, h, w, dirs, resident_warps(cost.device)):
-        for group in direction_groups(dirs):
+    for group, family in launch_plan(cost.shape, cost.device, dirs, p1, p2,
+                                     s_max, label_ext):
+        if family:
             tables = torch.stack([p2_effective(img, r, p1, p2, adaptive_p2)
                                   for r in group])
-            s = sgm_sweep_family(cost, tables, group, p1, s=s,
-                                 s_dtype=s_dtype, label_ext=label_ext, nl=nl)
-        return s
-    for r in dirs:
-        s = sgm_sweep(cost, p2_effective(img, r, p1, p2, adaptive_p2), r, p1,
-                      s=s, s_dtype=s_dtype, label_ext=label_ext, nl=nl)
+            s = sgm_sweep_family(cost, tables, group, p1, s=s, **kw)
+            continue
+        for r in group:  # one P2' table at a time
+            s = sgm_sweep(cost, p2_effective(img, r, p1, p2, adaptive_p2), r,
+                          p1, s=s, **kw)
     return s
 
 

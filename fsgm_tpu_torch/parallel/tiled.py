@@ -203,7 +203,8 @@ def aggregate_tiled(costs: Sequence[torch.Tensor],
     ht = costs[0].shape[-3]
     sweep = agg.sgm_sweep_plain_into if plain else agg.sgm_sweep
     horiz, down, up = split_dirs(dirs)
-    kw = dict(s_dtype=s_dtype, label_ext=label_ext, nl=nl)
+    kw = dict(s_dtype=s_dtype, label_ext=label_ext, nl=nl,
+              p2_max=agg.p2_bound(p1, p2))
 
     def p2e(k, fam):
         """Tile k's P2' table of each direction in fam."""

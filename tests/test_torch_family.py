@@ -14,11 +14,11 @@ held to the JAX package:
     contract; aggregate_one_path is that tool's plain reference), and over
     the 8 paths with flow's 2D label rule and pad slots.
 
-aggregate_paths takes the family launches where family_launch_pays (one
-direction's lines of all frames are fewer than the card's resident warps).
-On the CPU no card is there to fill, so the tests raise the warp count to
-make it take them: stereo_sgm and flow_fsgm then equal their per-direction
-results bit for bit.  The kernel itself runs on the card (the `cuda` test
+aggregate_paths takes a group's family launch where family_launch_pays
+(few lines against the per-direction kernel's resident warps).  On the CPU
+no card is there to fill, so the tests make the rule say yes to make it
+take them: stereo_sgm and flow_fsgm then equal their per-direction results
+bit for bit.  The kernel itself runs on the card (the `cuda` test
 at the end and chip_smoke.py phase 9).
 """
 
@@ -37,7 +37,6 @@ from fsgm_tpu_torch.io import blockwise_flow_pair
 from fsgm_tpu_torch.ops.kernels import aggregate as agg
 
 P1, P2 = 7, 60
-H100_WARPS = 132 * 2048 // 32  # SMs x threads per SM / warp size
 
 
 def _volume(h, w, d, seed):
@@ -139,7 +138,7 @@ def test_rejects_a_carry_and_bad_input():
 @pytest.fixture
 def fused(monkeypatch):
     """aggregate_paths takes the family launches on the CPU too."""
-    monkeypatch.setattr(agg, "resident_warps", lambda device: 1 << 40)
+    monkeypatch.setattr(agg, "family_launch_pays", lambda *a, **k: True)
 
 
 def _per_direction(tc, ti, dirs, s_max, e=None, nl=None):
@@ -183,7 +182,7 @@ def test_fused_stereo_and_flow_equal_default(monkeypatch):
     want_s, want_f = stereo_sgm(tl, tr, p), flow_fsgm(f1, f2, fp)
     calls = []
     family = agg.sgm_sweep_family
-    monkeypatch.setattr(agg, "resident_warps", lambda device: 1 << 40)
+    monkeypatch.setattr(agg, "family_launch_pays", lambda *a, **k: True)
     monkeypatch.setattr(agg, "sgm_sweep_family",
                         lambda *a, **k: calls.append(a[2]) or family(*a, **k))
     assert torch.equal(stereo_sgm(tl, tr, p), want_s)
@@ -195,9 +194,15 @@ def test_fused_stereo_and_flow_equal_default(monkeypatch):
 
 def test_family_launch_rule():
     """lines_per_frame counts the pixels whose predecessor lies outside the
-    frame; family_launch_pays holds where the largest direction's lines
-    over all frames are fewer than half the card's resident warps: 1 and
-    2 KITTI frames yes, 3 and 16 no, and never on the CPU (0 warps)."""
+    frame.  family_launch_pays takes a group's family launch while frames x
+    its most lines x K^1.5 stays below FAMILY_SHARE x its directions x the
+    resident warps: with the per-direction kernel's resident warps on one
+    H100 (4,224 at D=128, 5,280 at D=64, chip_smoke.py), one KITTI frame
+    sweeps its vertical group per direction and its horizontal pair in one
+    family launch, two frames everything per direction; config 1 (288x384,
+    D=64) takes family launches for both groups up to 4 frames and none
+    from 8.  Off the card (0 warps) it never pays, so launch_plan sweeps
+    per direction on the CPU."""
     for h, w in ((375, 1242), (5, 3), (1, 7), (2, 2)):
         ys, xs = np.mgrid[:h, :w]
         for dy, dx in DIRS_16:
@@ -205,13 +210,22 @@ def test_family_launch_rule():
                        | (xs - dx >= w))
             assert agg.lines_per_frame(h, w, (dy, dx)) == outside.sum()
     assert agg.lines_per_frame(375, 1242, (1, 1)) == 1616
-    assert agg.family_launch_pays(1, 375, 1242, DIRS_8, H100_WARPS)
-    assert agg.family_launch_pays(2, 375, 1242, DIRS_8, H100_WARPS)
-    assert not agg.family_launch_pays(3, 375, 1242, DIRS_8, H100_WARPS)
-    assert not agg.family_launch_pays(16, 375, 1242, DIRS_8, H100_WARPS)
-    assert agg.family_launch_pays(1, 375, 1242, DIRS_16, H100_WARPS)
-    assert agg.resident_warps(torch.device("cpu")) == 0
-    assert not agg.family_launch_pays(1, 37, 53, DIRS_8, 0)
+    vert, horiz = agg.direction_groups(DIRS_8)
+
+    def pays(frames, h, w, group, nd):
+        return agg.family_launch_pays(frames, h, w, group, nd,
+                                      {128: 4224, 64: 5280}[nd])
+
+    assert not pays(1, 375, 1242, vert, 128) and pays(1, 375, 1242, horiz, 128)
+    assert not pays(2, 375, 1242, horiz, 128)
+    for group in (vert, horiz):
+        assert [pays(b, 288, 384, group, 64) for b in (1, 2, 4, 8, 16)] == \
+            [True] * 3 + [False] * 2
+    assert not agg.family_launch_pays(1, 37, 53, vert, 32, 0)
+    assert agg.resident_warps(torch.device("cpu"), 128, torch.int16) == 0
+    assert agg.launch_plan((37, 53, 32), torch.device("cpu"), DIRS_16, 7,
+                           60) == [(g, False) for g in
+                                   agg.direction_groups(DIRS_16)]
 
 
 @pytest.fixture
@@ -250,8 +264,8 @@ def test_family_kernel_matches_plain_on_the_card(card):
                 got = agg.sgm_sweep_family(cost, tables, group, P1,
                                            s=s0.clone(), label_ext=e, nl=nl)
                 assert torch.equal(got, s0 + want.to(dtype)), (nd, group)
-        assert agg.family_launch_pays(b, h, w, dirs,
-                                      agg.resident_warps(card))
+        plan = agg.launch_plan(cost.shape, card, dirs, P1, P2, 2841, e)
+        assert plan == [(g, True) for g in agg.direction_groups(dirs)]
         assert torch.equal(agg.aggregate_paths(cost, img, dirs, P1, P2,
                                                True, 2841, e, nl),
                            _per_direction(cost, img, dirs, 2841, e, nl))
