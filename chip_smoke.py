@@ -19,11 +19,12 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
   1. build the kernels from fsgm_tpu_torch/csrc, one nvcc per source (six
      sources, nine entry points), all started together, and print the
      -Xptxas -v record of every K2 instantiation (registers, shared
-     memory, spills);
-  2. stereo kernels K1 census_cost, K2 sgm_sweep (1D labels; each
-     direction with packed and with int32 labels) and K3 extract_stereo
-     against their plain PyTorch versions on the card, exact, at the KITTI
-     shape (random-dot pair) and at 37x53, D=32;
+     memory, spills) and of K1's and K3's (the worst, and the main path's);
+  2. stereo kernels K1 census_cost (left and right reference, with the
+     main path's 32-bit census words and with 64-bit ones), K2 sgm_sweep
+     (1D labels; each direction with packed and with int32 labels) and K3
+     extract_stereo against their plain PyTorch versions on the card,
+     exact, at the KITTI shape (random-dot pair) and at 37x53, D=32;
   3. flow kernels K5 label_minor_from_major, K2 sgm_sweep (2D labels) and
      K4 extract_flow against their plain versions, exact, on one flow level
      with a non-zero prior: the config-4 level-0 shape (375x1242, 81 labels
@@ -229,6 +230,34 @@ def ptxas_record() -> dict:
                              or "K=3,int16,mode=1,2d=1" in k})
 
 
+def k13_ptxas_record() -> dict:
+    """-Xptxas -v of cost.cu (K1) and extract.cu (K3, wta_right): per
+    library the instantiations, the worst registers, static shared memory
+    and spill bytes, and the main path's instantiation [registers, smem,
+    spill bytes]: K1 census_cost_kernel<NP=4, left, 32-bit words>, K3
+    extract_kernel<K=4, int16, with the right view>."""
+    from fsgm_tpu_torch.ops.kernels import _build
+    from fsgm_tpu_torch.utils.k2_bench import parse_ptxas
+    main = {"cost": "census_cost_kernelILi4ELb0ELb1E",
+            "extract": "extract_kernelILi4EsLi1E"}
+    out = {}
+    for lib, tag in main.items():
+        recs = parse_ptxas(_build.ptxas_log(lib))
+        require(len(recs) > 0, f"no -Xptxas -v record for {lib}.cu")
+        hit = [r for r in recs if tag in r["kernel"]]
+        require(len(hit) == 1, f"no main instantiation {tag} in {lib}.cu")
+        out[lib] = dict(
+            instantiations=len(recs),
+            max_registers=max(r["registers"] for r in recs),
+            max_smem=max(r["smem"] for r in recs),
+            spill_bytes=sum(r["spill_stores"] + r["spill_loads"]
+                            for r in recs),
+            main=[hit[0]["registers"], hit[0]["smem"],
+                  hit[0]["spill_stores"] + hit[0]["spill_loads"]])
+    print(f"ptxas cost.cu and extract.cu: {json.dumps(out)}")
+    return out
+
+
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"FAILED: {what}")
@@ -336,10 +365,15 @@ def check_kernels(shape, params, dev, dirs, tag: str) -> dict:
     tl, tr, _ = pair(h, w, d, SEED, dev)
     cl = census_transform(tl, params.census_window)
     cr = census_transform(tr, params.census_window)
-    c = cost.census_cost(cl, cr, d, params.invalid_cost)
-    errs = {"census_cost": max_err(c, cost.census_cost_plain(
-        cl, cr, d, params.invalid_cost))}
+    # the main path's 32-bit words (census_bits) and the 64-bit path, both
+    # references
+    errs = {"census_cost": max(max_err(
+        cost.census_cost(cl, cr, d, params.invalid_cost, rr, bits),
+        cost.census_cost_plain(cl, cr, d, params.invalid_cost, rr, bits))
+        for bits in (params.census_bits, 64) for rr in (False, True))}
     require(errs["census_cost"] == 0, f"{tag} census_cost != plain")
+    c = cost.census_cost(cl, cr, d, params.invalid_cost, False,
+                         params.census_bits)
 
     s_dtype = agg.plan_dtypes(params.s_invalid)
     cap = agg.p2_bound(params.p1, params.p2)
@@ -408,9 +442,10 @@ def check_batch_kernels(shape, b, params, dev, tag: str) -> dict:
     cr = census_transform(tr, params.census_window)
     k1 = 0
     for rr in (False, True):
-        got = cost.census_cost(cl, cr, d, params.invalid_cost, rr)
+        got = cost.census_cost(cl, cr, d, params.invalid_cost, rr,
+                               params.census_bits)
         k1 = max(k1, max_err(got, cost.census_cost_plain(
-            cl, cr, d, params.invalid_cost, rr)))
+            cl, cr, d, params.invalid_cost, rr, params.census_bits)))
         del got
     require(k1 == 0, f"{tag} batched census_cost != plain")
     c = cost.census_cost(cl, cr, d, params.invalid_cost)
@@ -1258,7 +1293,7 @@ def check_variant_kernels(params, fparams, dev) -> dict:
           f"{k3}, {k3_left}")
     del s, s0, sp, got, want
     c97 = (census_transform(tl, (9, 7)), census_transform(tr, (9, 7)), d,
-           params.invalid_cost)
+           params.invalid_cost, False, 62)
     k1 = max_err(cost.census_cost(*c97), cost.census_cost_plain(*c97))
     require(k1 == 0, "K1 with 9x7 census != plain")
     print(f"K1 with 9x7 census (62 bits) == plain at KITTI: max_abs_err {k1}")
@@ -1650,6 +1685,7 @@ def main() -> int:
           f"({len(_build.ENTRY)} entry points): "
           f"{time.perf_counter() - t0:.2f} s")
     k2_ptxas = ptxas_record()
+    k13_ptxas = k13_ptxas_record()
 
     # 2. stereo kernels against their plain versions
     params = load_preset("configs/kitti_stereo.json")["sgm"]
@@ -1750,7 +1786,7 @@ def main() -> int:
     # 7. timings, each kernel on its main path's inputs
     cl = census_transform(tl, params.census_window)
     cr = census_transform(tr, params.census_window)
-    cost_args = (cl, cr, d, params.invalid_cost)
+    cost_args = (cl, cr, d, params.invalid_cost, False, params.census_bits)
     c = cost.census_cost(*cost_args)
     s_dtype = agg.plan_dtypes(params.s_invalid)
     p2_max = agg.p2_bound(params.p1, params.p2)
@@ -1852,7 +1888,8 @@ def main() -> int:
     bl, br = frame_stack(h, w, d, BATCH, SEED, dev)
     bcl = census_transform(bl, params.census_window)
     bcr = census_transform(br, params.census_window)
-    bcost_args = (bcl, bcr, d, params.invalid_cost)
+    bcost_args = (bcl, bcr, d, params.invalid_cost, False,
+                  params.census_bits)
     bc = cost.census_cost(*bcost_args)
     bp2es = [agg.p2_effective(bl, r, params.p1, params.p2,
                               params.adaptive_p2) for r in params.dirs]
@@ -1967,7 +2004,10 @@ def main() -> int:
             row["ptxas"] = k2_ptxas
             row["carry"] = tiled_times["carry"]
             row["tile_horizontal"] = tiled_times["tile_horizontal"]
+        if name == "census_cost":
+            row["ptxas"] = k13_ptxas["cost"]
         if name == "extract_stereo":
+            row["ptxas"] = k13_ptxas["extract"]
             row["window"] = tiled_times["window"]
             row["without_rwta"] = vtimes["k3_left"]
         if name in btimes:  # the same kernel over the batched path's frames

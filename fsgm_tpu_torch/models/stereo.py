@@ -43,7 +43,7 @@ def _s_volume(cen_ref: torch.Tensor, cen_match: torch.Tensor,
     aggregate_paths = (aggregate.aggregate_paths_plain if plain
                        else aggregate.aggregate_paths)
     c = build_cost(cen_ref, cen_match, params.max_disp, params.invalid_cost,
-                   right_reference)
+                   right_reference, params.census_bits)
     return aggregate_paths(c, guide, params.dirs, params.p1, params.p2,
                            params.adaptive_p2, s_max=params.s_invalid)
 

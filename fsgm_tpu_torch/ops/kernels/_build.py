@@ -51,7 +51,7 @@ _I = ctypes.c_int
 # argtypes)
 ENTRY = {
     "census_cost": ("cost", "fsgm_census_cost",
-                    [_P, _P, _P] + [_I] * 6 + [_P]),
+                    [_P, _P, _P] + [_I] * 7 + [_P]),
     "sgm_sweep": ("sgm_sweep", "fsgm_sgm_sweep", [_P] * 5 + [_I] * 12 + [_P]),
     "sgm_sweep_family": ("sgm_sweep", "fsgm_sgm_sweep_family",
                          [_P] * 3 + [_I] * 10 + [_P, _I, _P]),

@@ -13,6 +13,12 @@ layout and their neutral-zero pad rows and lanes have no counterpart:
                       (fsgm_tpu/ops/cost.py::cost_volume_stereo_right, the
                       input of lr_mode="reagg").
 
+``census_bits`` is the width of the census window's words (every word
+lies below 2^census_bits: ``SGMParams.census_bits``, 24 for the 5x5 window
+of configs 1, 2 and 5); up to 32 the kernel counts one 32-bit word a byte.
+The callers take it from the census window they hold, never from the data;
+the plain version refuses a word wider than it says.
+
 ``census_cost`` launches the CUDA kernel (csrc/cost.cu) once for all B
 frames of a CUDA tensor and takes ``census_cost_plain`` for CPU tensors.
 """
@@ -25,10 +31,32 @@ from fsgm_tpu_torch.ops.census import hamming
 from fsgm_tpu_torch.ops.kernels import _build
 
 
+WORD32_BITS = 32  # csrc/cost.cu: census_bits up to this take 32-bit words
+
+
+def popcounts_per_byte(census_bits: int) -> int:
+    """32-bit POPC instructions the kernel spends on one cost byte: one for
+    census words of up to WORD32_BITS bits, two (a 64-bit popcount)
+    above."""
+    return 1 if census_bits <= WORD32_BITS else 2
+
+
+def _check_bits(census_bits: int) -> None:
+    if not 1 <= census_bits <= 64:
+        raise ValueError(f"census_bits {census_bits} must lie in 1..64")
+
+
 def census_cost_plain(cen_l: torch.Tensor, cen_r: torch.Tensor,
                       max_disp: int, invalid_cost: int = 255,
-                      right_reference: bool = False) -> torch.Tensor:
-    """Plain PyTorch version over (..., H, W) census, vectorised over D."""
+                      right_reference: bool = False,
+                      census_bits: int = 64) -> torch.Tensor:
+    """Plain PyTorch version over (..., H, W) census, vectorised over D;
+    raises where a word does not fit census_bits."""
+    _check_bits(census_bits)
+    if census_bits < 64 and any(bool(((c >> census_bits) != 0).any())
+                                for c in (cen_l, cen_r)):
+        raise ValueError(f"a census word is wider than census_bits = "
+                         f"{census_bits}")
     w = cen_l.shape[-1]
     xs = torch.arange(w, device=cen_l.device)[:, None]
     ds = torch.arange(max_disp, device=cen_l.device)[None, :]
@@ -43,10 +71,11 @@ def census_cost_plain(cen_l: torch.Tensor, cen_r: torch.Tensor,
 
 
 def census_cost(cen_l: torch.Tensor, cen_r: torch.Tensor, max_disp: int,
-                invalid_cost: int = 255,
-                right_reference: bool = False) -> torch.Tensor:
+                invalid_cost: int = 255, right_reference: bool = False,
+                census_bits: int = 64) -> torch.Tensor:
     """(H, W) or (B, H, W) int64 census pair -> (..., H, W, D) u8 cost
-    volume (left reference, or right reference for lr_mode="reagg")."""
+    volume (left reference, or right reference for lr_mode="reagg"); every
+    word below 2^census_bits."""
     if cen_l.dtype != torch.int64 or cen_r.dtype != torch.int64:
         raise TypeError("census_cost takes int64 census descriptors")
     if cen_l.dim() not in (2, 3) or cen_l.shape != cen_r.shape:
@@ -57,9 +86,10 @@ def census_cost(cen_l: torch.Tensor, cen_r: torch.Tensor, max_disp: int,
         raise ValueError("census_cost inputs lie on different devices")
     if not 0 <= invalid_cost <= 255 or not 0 < max_disp <= 256:
         raise ValueError("invalid_cost must fit u8 and 0 < max_disp <= 256")
+    _check_bits(census_bits)
     if cen_l.device.type == "cpu":
         return census_cost_plain(cen_l, cen_r, max_disp, invalid_cost,
-                                 right_reference)
+                                 right_reference, census_bits)
     if cen_l.device.type != "cuda":
         raise ValueError(f"census_cost: unsupported device {cen_l.device}")
     if not (cen_l.is_contiguous() and cen_r.is_contiguous()):
@@ -73,7 +103,7 @@ def census_cost(cen_l: torch.Tensor, cen_r: torch.Tensor, max_disp: int,
     fn = _build.load("census_cost")
     with torch.cuda.device(cen_l.device):
         err = fn(cen_l.data_ptr(), cen_r.data_ptr(), out.data_ptr(), b, h, w,
-                 max_disp, invalid_cost, int(right_reference),
+                 max_disp, invalid_cost, int(right_reference), census_bits,
                  _build.stream_of(cen_l))
     _build.check(err, "census_cost")
     _build.LAUNCHES["census_cost"] += 1

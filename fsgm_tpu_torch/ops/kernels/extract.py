@@ -50,8 +50,14 @@ import torch
 from fsgm_tpu_torch.ops import extract as ext
 from fsgm_tpu_torch.ops.kernels import _build
 
-MAX_WIDTH = 232448 // 8  # two int32 rows of shared memory per block
-MAX_WIDTH_RIGHT = 232448 // 4  # wta_right: one int32 row
+# csrc/extract.cu: a block's shared memory holds its ring of S pixels and
+# int32 planes of the row, each of stride at most W + 1 (rho, d*, s_0, s_m,
+# s_p; wta_right rho alone)
+SMEM_BYTES = 232448  # kSmemBytes: an H100 block's shared memory, at most
+RING_BYTES = 32768   # kRingBytes
+PLANES = 5           # kPlanes
+MAX_WIDTH = (SMEM_BYTES - RING_BYTES) // (4 * PLANES) - 1
+MAX_WIDTH_RIGHT = (SMEM_BYTES - RING_BYTES) // 4 - 1
 
 
 def _w_global(w: int, gx0: int, w_global: int | None) -> int:
@@ -105,12 +111,14 @@ def extract_stereo(s: torch.Tensor, s_invalid: int, max_diff: int = 1,
                                     with_rwta, gx0, w_global)
     if s.device.type != "cuda":
         raise ValueError(f"extract_stereo: unsupported device {s.device}")
-    if nd % 32 != 0 or w > MAX_WIDTH or not s.is_contiguous():
-        raise ValueError(f"extract_stereo kernel needs a contiguous S with D "
-                         f"a multiple of 32 and W <= {MAX_WIDTH}, got "
-                         f"{tuple(s.shape)}")
-    outs = [torch.empty(s.shape[:-1], dtype=torch.int32, device=s.device)
-            for _ in range(5 if with_rwta else 4)]
+    if (nd % 32 != 0 or w > MAX_WIDTH or not s.is_contiguous()
+            or s.data_ptr() % 16):
+        raise ValueError(f"extract_stereo kernel needs a contiguous, 16-byte "
+                         f"aligned S with D a multiple of 32 and W <= "
+                         f"{MAX_WIDTH}, got {tuple(s.shape)}")
+    # one allocation for the planes (a launch's host time counts at B = 1)
+    outs = torch.empty((5 if with_rwta else 4,) + s.shape[:-1],
+                       dtype=torch.int32, device=s.device).unbind(0)
     if s.numel() > 0:
         ptrs = [o.data_ptr() for o in outs]
         ptrs += [ptrs[0]] * (5 - len(ptrs))  # never written without rwta
@@ -141,10 +149,11 @@ def wta_right(s: torch.Tensor, s_invalid: int) -> torch.Tensor:
         return wta_right_plain(s, s_invalid)
     if s.device.type != "cuda":
         raise ValueError(f"wta_right: unsupported device {s.device}")
-    if nd % 32 != 0 or w > MAX_WIDTH_RIGHT or not s.is_contiguous():
-        raise ValueError(f"wta_right kernel needs a contiguous S with D a "
-                         f"multiple of 32 and W <= {MAX_WIDTH_RIGHT}, got "
-                         f"{tuple(s.shape)}")
+    if (nd % 32 != 0 or w > MAX_WIDTH_RIGHT or not s.is_contiguous()
+            or s.data_ptr() % 16):
+        raise ValueError(f"wta_right kernel needs a contiguous, 16-byte "
+                         f"aligned S with D a multiple of 32 and W <= "
+                         f"{MAX_WIDTH_RIGHT}, got {tuple(s.shape)}")
     rho = torch.empty(s.shape[:-1], dtype=torch.int32, device=s.device)
     if s.numel() > 0:
         b = s.shape[0] if s.dim() == 4 else 1

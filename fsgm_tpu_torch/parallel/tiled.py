@@ -319,7 +319,7 @@ def _stereo_chain(tl: list, tr: list, params: SGMParams, dist: DistParams,
         costs = []
         for cl, cr in zip(cen_l, cen_r):
             c = build(cl, cr, params.max_disp, params.invalid_cost,
-                      right_reference)
+                      right_reference, params.census_bits)
             if windowed:
                 c = _globalize_cost(c, gx0, w_global, params.invalid_cost,
                                     right_reference)
