@@ -19,7 +19,8 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
   1. build the kernels from fsgm_tpu_torch/csrc, one nvcc per source (six
      sources, nine entry points), all started together, and print the
      -Xptxas -v record of every K2 instantiation (registers, shared
-     memory, spills) and of K1's and K3's (the worst, and the main path's);
+     memory, spills) and of K1's, K3's, K4's and min16_probe's (the worst,
+     and the main path's);
   2. stereo kernels K1 census_cost (left and right reference, with the
      main path's 32-bit census words and with 64-bit ones), K2 sgm_sweep
      (1D labels; each direction with packed and with int32 labels) and K3
@@ -53,11 +54,12 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
      card, on PNGs written to a temporary directory;
   7. CUDA-event timings (median after warm-up) of each kernel and its plain
      version on the main paths' inputs (K2: the frame's 8 launches over
-     prebuilt P2' tables; the flow kernels at level 0; K1, K2 and K3 also
-     over the 16 frames of the batched path), K5 beside PyTorch's own axis
-     exchange (library_ms), the device launches of the plain-torch flow
-     cost build and census, the pipelines end to end, and the batched
-     path's ms and launches per frame at B=1 and B=16;
+     prebuilt P2' tables; the flow kernels at level 0, K4 also by its
+     torch.profiler device time beside the call's event time; K1, K2 and
+     K3 also over the 16 frames of the batched path), K5 beside PyTorch's
+     own axis exchange (library_ms), the device launches of the
+     plain-torch flow cost build and census, the pipelines end to end, and
+     the batched path's ms and launches per frame at B=1 and B=16;
   8. tiled: (a) K2 with carry in and out against its plain version, exact:
      on one config-5 tile (rows 540..1079 of 2 frames, 3840x128) in the six
      vertical directions, each from the carry K2 exported over the tile
@@ -92,12 +94,16 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
      (wta_right) and K3 without it at KITTI and frame by frame over the
      S of 16 KITTI frames, wta_right at tools/strideroll_probe.py's shape
      (376x1280x128 int32); K1 with 9x7 census; the min16_probe forms
-     against torch.minimum; (b) aggregate_paths' K2 plan against every
+     against torch.minimum on 2^26 values and at every head and tail (n = 0
+     ... 2^20 + 3, views 0-7 elements off a 16-byte boundary, b at and off
+     a's offset) and on a side stream, whose handle _build.stream_of must
+     give; (b) aggregate_paths' K2 plan against every
      direction group forced to family launches and to per-direction
      launches, bit for bit, the three calls' launches counted and held to
      the plan and timed per frame: stereo_sgm_batch at config 2 with 1
      frame and 16, at config 1 with 16, and flow_fsgm at config 4; (c)
-     CUDA-event ms of each new kernel beside its plain version and bound,
+     CUDA-event ms of each new kernel beside its plain version and bound
+     (min16_probe's forms and torch.minimum also by device time),
      the family launches beside the per-direction launches they replace
      (each count read from one call), each KITTI direction alone (ns a
      step), and the plan against both forms over 1 to 8 KITTI frames
@@ -230,16 +236,20 @@ def ptxas_record() -> dict:
                              or "K=3,int16,mode=1,2d=1" in k})
 
 
-def k13_ptxas_record() -> dict:
-    """-Xptxas -v of cost.cu (K1) and extract.cu (K3, wta_right): per
-    library the instantiations, the worst registers, static shared memory
-    and spill bytes, and the main path's instantiation [registers, smem,
-    spill bytes]: K1 census_cost_kernel<NP=4, left, 32-bit words>, K3
-    extract_kernel<K=4, int16, with the right view>."""
+def lib_ptxas_record() -> dict:
+    """-Xptxas -v of cost.cu (K1), extract.cu (K3, wta_right),
+    extract_flow.cu (K4) and min16_probe.cu: per library the
+    instantiations, the worst registers, static shared memory and spill
+    bytes, and the main path's instantiation [registers, smem, spill
+    bytes]: K1 census_cost_kernel<NP=4, left, 32-bit words>, K3
+    extract_kernel<K=4, int16, with the right view>, K4
+    extract_flow_kernel<K=3, int16>, min16_probe's packed form."""
     from fsgm_tpu_torch.ops.kernels import _build
     from fsgm_tpu_torch.utils.k2_bench import parse_ptxas
     main = {"cost": "census_cost_kernelILi4ELb0ELb1E",
-            "extract": "extract_kernelILi4EsLi1E"}
+            "extract": "extract_kernelILi4EsLi1E",
+            "extract_flow": "extract_flow_kernelILi3EsE",
+            "min16_probe": "min_kernelILi3EE"}
     out = {}
     for lib, tag in main.items():
         recs = parse_ptxas(_build.ptxas_log(lib))
@@ -254,7 +264,8 @@ def k13_ptxas_record() -> dict:
                             for r in recs),
             main=[hit[0]["registers"], hit[0]["smem"],
                   hit[0]["spill_stores"] + hit[0]["spill_loads"]])
-    print(f"ptxas cost.cu and extract.cu: {json.dumps(out)}")
+    print(f"ptxas cost.cu, extract.cu, extract_flow.cu and min16_probe.cu: "
+          f"{json.dumps(out)}")
     return out
 
 
@@ -279,21 +290,9 @@ def card() -> str:
 
 def median_ms(fn, reps: int = 10, warmup: int = 2, inner: int = 1) -> float:
     """Median over reps of the ms of one fn() call, timed over ``inner``
-    calls back to back."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return float(np.median(times))
+    calls back to back (utils/card_timing.py)."""
+    from fsgm_tpu_torch.utils import card_timing
+    return card_timing.median_ms(fn, reps, warmup, inner)
 
 
 def device_launches(fn) -> int:
@@ -308,6 +307,14 @@ def device_launches(fn) -> int:
         torch.cuda.synchronize()
     return sum(e.count for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA)
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """torch.profiler's device time of one fn() call for a fn that launches
+    each of its kernels once, after one warm-up call
+    (utils/card_timing.py)."""
+    from fsgm_tpu_torch.utils import card_timing
+    return card_timing.device_ms(fn, reps)
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -1247,7 +1254,8 @@ def check_variant_kernels(params, fparams, dev) -> dict:
     from fsgm_tpu_torch import DIRS_16
     from fsgm_tpu_torch.ops.census import census_transform
     from fsgm_tpu_torch.ops.kernels import aggregate as agg
-    from fsgm_tpu_torch.ops.kernels import cost, extract, probe, transpose
+    from fsgm_tpu_torch.ops.kernels import (_build, cost, extract, probe,
+                                            transpose)
 
     h, w, d = KITTI
     kw = dict(p1=params.p1, p2=params.p2, adaptive=params.adaptive_p2)
@@ -1356,6 +1364,42 @@ def check_variant_kernels(params, fparams, dev) -> dict:
         require(k16 == 0, f"min16_probe {form} != torch.minimum")
     print(f"min16_probe {probe.FORMS} == torch.minimum on {MIN16_N} values: "
           f"max_abs_err {k16}")
+    # heads and tails: counts around a 16-byte vector, views 0-7 elements
+    # off a 16-byte boundary (packed: even), b at a's offset and off it
+    cases = 0
+    for form in probe.FORMS:
+        x, y = (a, b) if form == "int32" else (a.to(torch.int16),
+                                               b.to(torch.int16))
+        packed = form == "packed"
+        for n in ((0, 2, 8, 10, (1 << 20) + 4) if packed
+                  else (0, 1, 7, 9, (1 << 20) + 3)):
+            for off in range(0, 8, 2 if packed else 1):
+                for off_b in {off, (off + 2) % 8}:
+                    xs, ys = x[off:off + n], y[off_b:off_b + n]
+                    got = probe.min_probe(xs, ys, form)
+                    require(got.shape == xs.shape, "min16_probe shape")
+                    if n:
+                        k16 = max(k16, max_err(got, torch.minimum(xs, ys)))
+                    cases += 1
+        require(k16 == 0, f"min16_probe {form} head / tail != torch.minimum")
+    print(f"min16_probe heads and tails ({cases} cases: n = 0 ... 2^20 + 3, "
+          f"offsets 0-7, b at and off a's offset) == torch.minimum: "
+          f"max_abs_err {k16}")
+    # a launch goes to the caller's current stream: _build.stream_of reads
+    # torch's raw stream handle (a private torch call), held here to the
+    # public handle on a stream of its own
+    x, y = a.to(torch.int16), b.to(torch.int16)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        require(_build.stream_of(x) == side.cuda_stream,
+                "_build.stream_of is not the current stream's handle")
+        got = probe.min_probe(x, y, "packed")
+    side.synchronize()
+    k16 = max(k16, max_err(got, torch.minimum(x, y)))
+    require(k16 == 0, "min16_probe on a side stream != torch.minimum")
+    print(f"min16_probe on a side stream (stream_of == its handle) == "
+          f"torch.minimum: max_abs_err {k16}")
     return {"sgm_sweep_family": k2, "wta_right": k3, "extract_stereo": k3_left,
             "census_cost": k1, "min16_probe": k16}
 
@@ -1635,18 +1679,23 @@ def time_family(params, tparams, fparams, dev, card_line: str) -> dict:
     for form in probe.FORMS:
         x, y = (a32, b32) if form == "int32" else (a16, b16)
         b_ms, b_by = bound(3 * MIN16_N * x.element_size(), MIN16_N)
-        forms[form] = dict(ms=median_ms(lambda: probe.min_probe(x, y, form)),
+        fn = (lambda x=x, y=y, form=form: probe.min_probe(x, y, form))
+        forms[form] = dict(ms=median_ms(fn), device_ms=device_ms(fn),
                            bound_ms=b_ms, bound_by=b_by)
     lib16 = median_ms(lambda: torch.minimum(a16, b16))
     lib32 = median_ms(lambda: torch.minimum(a32, b32))
+    lib_dev = {k: device_ms(lambda x=x, y=y: torch.minimum(x, y))
+               for k, (x, y) in (("int16", (a16, b16)), ("int32", (a32, b32)))}
     rows["min16"] = dict(
-        n=MIN16_N, forms=forms, ms=forms["packed"]["ms"], plain_ms=lib16,
+        n=MIN16_N, forms=forms, ms=forms["packed"]["ms"],
+        device_ms=forms["packed"]["device_ms"], plain_ms=lib16,
         bound_ms=forms["packed"]["bound_ms"],
         bound_by=forms["packed"]["bound_by"], library_ms=lib16,
-        library_int32_ms=lib32)
-    print(f"time min16_probe on {MIN16_N} values: "
-          f"{json.dumps(forms)}; torch.minimum int16 {lib16:.4f} ms, int32 "
-          f"{lib32:.4f} ms ({card_line})")
+        library_int32_ms=lib32, library_device_ms=lib_dev)
+    print(f"time min16_probe on {MIN16_N} values (event ms of one call, "
+          f"device ms): {json.dumps(forms)}; torch.minimum int16 "
+          f"{lib16:.4f} ms (device {lib_dev['int16']:.4f}), int32 "
+          f"{lib32:.4f} ms (device {lib_dev['int32']:.4f}) ({card_line})")
     return rows
 
 
@@ -1685,7 +1734,7 @@ def main() -> int:
           f"({len(_build.ENTRY)} entry points): "
           f"{time.perf_counter() - t0:.2f} s")
     k2_ptxas = ptxas_record()
-    k13_ptxas = k13_ptxas_record()
+    lib_ptxas = lib_ptxas_record()
 
     # 2. stereo kernels against their plain versions
     params = load_preset("configs/kitti_stereo.json")["sgm"]
@@ -1854,6 +1903,9 @@ def main() -> int:
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, library_ms=lib_ms)
         lib_txt = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        if name == "extract_flow":  # the kernel's own time beside the call's
+            times[name]["device_ms"] = device_ms(kern)
+            lib_txt += f", device {times[name]['device_ms']:.4f} ms"
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms by {b_by} ({nbytes} B, {nops} ops)"
               f"{lib_txt} (shape {shape}; {card_line})")
@@ -1979,7 +2031,7 @@ def main() -> int:
     times["wta_right"] = {k: vtimes["wta_right"][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     times["min16_probe"] = {k: vtimes["min16"][k] for k in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     for name, (_, _, _, paths) in SOURCES.items():
         for path in paths:
             require(launches[path].get(name, 0) > 0,
@@ -2005,9 +2057,9 @@ def main() -> int:
             row["carry"] = tiled_times["carry"]
             row["tile_horizontal"] = tiled_times["tile_horizontal"]
         if name == "census_cost":
-            row["ptxas"] = k13_ptxas["cost"]
+            row["ptxas"] = lib_ptxas["cost"]
         if name == "extract_stereo":
-            row["ptxas"] = k13_ptxas["extract"]
+            row["ptxas"] = lib_ptxas["extract"]
             row["window"] = tiled_times["window"]
             row["without_rwta"] = vtimes["k3_left"]
         if name in btimes:  # the same kernel over the batched path's frames
@@ -2021,9 +2073,13 @@ def main() -> int:
                        into_s=vtimes["into_s"], choice=choice)
         if name == "wta_right":  # the row's times: a KITTI frame, int16 S
             row["probe_shape"] = vtimes["wta_right_probe"]
+        if name == "extract_flow":  # the row's times: config-4 level 0
+            row["ptxas"] = lib_ptxas["extract_flow"]
         if name == "min16_probe":  # the row's times: the packed form
             row.update(forms=vtimes["min16"]["forms"], n=MIN16_N,
-                       library_int32_ms=vtimes["min16"]["library_int32_ms"])
+                       library_int32_ms=vtimes["min16"]["library_int32_ms"],
+                       library_device_ms=vtimes["min16"]["library_device_ms"],
+                       ptxas=lib_ptxas["min16_probe"])
         rows.append(row)
 
     foreign = foreign_modules()

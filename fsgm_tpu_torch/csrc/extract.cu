@@ -70,14 +70,14 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "persistent.cuh"
-#include "sgm_walk.cuh"
 
 namespace {
 
-using fsgm_k2::cp_async16;
-using fsgm_k2::cp_commit;
-using fsgm_k2::cp_wait;
+using fsgm_cp::cp_async16;
+using fsgm_cp::cp_commit;
+using fsgm_cp::cp_wait;
 
 constexpr int kBig = 1 << 24;
 constexpr unsigned kFull = 0xffffffffu;

@@ -19,6 +19,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace fsgm_k2 {
 
 constexpr int kInf = 1 << 30;          // int32 labels: an absent neighbour
@@ -50,32 +52,10 @@ __host__ __device__ constexpr int slot_bytes(int k, int sb, int mode) {
 
 // ------------------------------------------------------------ cp.async
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using fsgm_cp::cp_async16;
+using fsgm_cp::cp_async4;
+using fsgm_cp::cp_commit;
+using fsgm_cp::cp_wait;
 
 // Copy step data of pixel `pix` into `slot`: the cost row and the S row in
 // 16-byte pieces spread over the warp's lanes.

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -166,6 +167,20 @@ def check(err: int, kernel: str) -> None:
 
 
 def stream_of(t) -> int:
-    """The current CUDA stream handle of tensor t's device."""
+    """The current CUDA stream handle of tensor t's device: the handle that
+    torch.cuda.current_stream(t.device).cuda_stream gives, read without
+    building a Stream object (a few microseconds of host time a launch)
+    through a private torch call; chip_smoke.py's phase 9 holds it to the
+    public handle on a side stream."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def on_device(t):
+    """The context a launch for tensor t runs in: t's device made current,
+    or nothing where it is current already (entering torch.cuda.device
+    costs several microseconds of host time a launch)."""
+    import torch
+    if t.get_device() == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)

@@ -379,7 +379,7 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
     if s.numel() > 0:
         b = cost.shape[0] if cost.dim() == 4 else 1
         fn = _build.load("sgm_sweep")
-        with torch.cuda.device(cost.device):
+        with _build.on_device(cost):
             err = fn(cost.data_ptr(), p2e.data_ptr(), s.data_ptr(),
                      init_carry.data_ptr() if init_carry is not None else None,
                      carry.data_ptr() if carry is not None else None,
@@ -465,7 +465,7 @@ def sgm_sweep_family(cost: torch.Tensor, p2e_tables: torch.Tensor,
         flat = [v for r in directions for v in r]
         dirs = (ctypes.c_int * len(flat))(*flat)
         fn = _build.load("sgm_sweep_family")
-        with torch.cuda.device(cost.device):
+        with _build.on_device(cost):
             err = fn(cost.data_ptr(), p2e_tables.data_ptr(), s.data_ptr(),
                      int(s_dtype == torch.int32), int(fresh),
                      int(packed16(s_dtype, nd, p1, p2_max)), b, h, w, nd,

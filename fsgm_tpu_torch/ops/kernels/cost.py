@@ -101,7 +101,7 @@ def census_cost(cen_l: torch.Tensor, cen_r: torch.Tensor, max_disp: int,
     h, w = cen_l.shape[-2:]
     b = cen_l.shape[0] if cen_l.dim() == 3 else 1
     fn = _build.load("census_cost")
-    with torch.cuda.device(cen_l.device):
+    with _build.on_device(cen_l):
         err = fn(cen_l.data_ptr(), cen_r.data_ptr(), out.data_ptr(), b, h, w,
                  max_disp, invalid_cost, int(right_reference), census_bits,
                  _build.stream_of(cen_l))

@@ -59,6 +59,9 @@ PLANES = 5           # kPlanes
 MAX_WIDTH = (SMEM_BYTES - RING_BYTES) // (4 * PLANES) - 1
 MAX_WIDTH_RIGHT = (SMEM_BYTES - RING_BYTES) // 4 - 1
 
+# csrc/extract_flow.cu reads S in 16-byte chunks (kChunk)
+K4_CHUNK = 16
+
 
 def _w_global(w: int, gx0: int, w_global: int | None) -> int:
     """w_global, checked (default: the untiled frame, W)."""
@@ -124,7 +127,7 @@ def extract_stereo(s: torch.Tensor, s_invalid: int, max_diff: int = 1,
         ptrs += [ptrs[0]] * (5 - len(ptrs))  # never written without rwta
         b = s.shape[0] if s.dim() == 4 else 1
         fn = _build.load("extract_stereo")
-        with torch.cuda.device(s.device):
+        with _build.on_device(s):
             err = fn(s.data_ptr(), int(s.dtype == torch.int32), *ptrs, b, h,
                      w, nd, s_invalid, max_diff, int(with_sub),
                      int(with_rwta), gx0, w_global, _build.stream_of(s))
@@ -158,7 +161,7 @@ def wta_right(s: torch.Tensor, s_invalid: int) -> torch.Tensor:
     if s.numel() > 0:
         b = s.shape[0] if s.dim() == 4 else 1
         fn = _build.load("wta_right")
-        with torch.cuda.device(s.device):
+        with _build.on_device(s):
             err = fn(s.data_ptr(), int(s.dtype == torch.int32),
                      rho.data_ptr(), b, h, w, nd, s_invalid,
                      _build.stream_of(s))
@@ -185,6 +188,17 @@ def extract_flow_plain(s: torch.Tensor, nl: int, label_ext: int,
     return l_int, vals[:3], vals[3:]
 
 
+def check_flow_kernel_input(s: torch.Tensor) -> None:
+    """Raise unless the kernel takes S: contiguous, 16-byte aligned, D a
+    multiple of 32 up to 256."""
+    nd = s.shape[-1]
+    if (nd % 32 != 0 or nd > 256 or not s.is_contiguous()
+            or s.data_ptr() % K4_CHUNK):
+        raise ValueError(f"extract_flow kernel needs a contiguous, 16-byte "
+                         f"aligned S with D a multiple of 32 up to 256, got "
+                         f"{tuple(s.shape)}")
+
+
 def extract_flow(s: torch.Tensor, nl: int, label_ext: int,
                  with_sub: bool = True):
     """(H, W, D) int16/int32 flow S with nl = label_ext^2 real labels ->
@@ -201,16 +215,15 @@ def extract_flow(s: torch.Tensor, nl: int, label_ext: int,
         return extract_flow_plain(s, nl, label_ext, with_sub)
     if s.device.type != "cuda":
         raise ValueError(f"extract_flow: unsupported device {s.device}")
-    if nd % 32 != 0 or nd > 256 or not s.is_contiguous():
-        raise ValueError(f"extract_flow kernel needs a contiguous S with D "
-                         f"a multiple of 32 up to 256, got {tuple(s.shape)}")
-    outs = [torch.empty((h, w), dtype=torch.int32, device=s.device)
-            for _ in range(7 if with_sub else 1)]
+    check_flow_kernel_input(s)
+    # one allocation for the planes (a launch's host time counts at a frame)
+    outs = torch.empty((7 if with_sub else 1, h, w), dtype=torch.int32,
+                       device=s.device).unbind(0)
     if s.numel() > 0:
         ptrs = [o.data_ptr() for o in outs]
         ptrs += [ptrs[0]] * (7 - len(ptrs))  # never written without with_sub
         fn = _build.load("extract_flow")
-        with torch.cuda.device(s.device):
+        with _build.on_device(s):
             err = fn(s.data_ptr(), int(s.dtype == torch.int32), *ptrs, h, w,
                      nd, nl, label_ext, int(with_sub), _build.stream_of(s))
         _build.check(err, "extract_flow")

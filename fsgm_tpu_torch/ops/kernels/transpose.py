@@ -39,7 +39,7 @@ def label_minor_from_major(vol: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     fn = _build.load("label_minor_from_major")
-    with torch.cuda.device(vol.device):
+    with _build.on_device(vol):
         err = fn(vol.data_ptr(), out.data_ptr(), h, nl, w,
                  _build.stream_of(vol))
     _build.check(err, "label_minor_from_major")

@@ -1,0 +1,65 @@
+"""Timing of one call on the card, shared by chip_smoke.py and the kernel
+benches (utils/k13_bench.py, utils/k4_bench.py).
+
+  * ``median_ms``: the median over ``reps`` of one call's CUDA-event ms,
+    after ``warmup`` calls (``inner`` calls back to back a timing): what a
+    caller waits for, the wrapper's host work included where it outlasts
+    the kernel;
+  * ``device_profile`` / ``device_ms``: torch.profiler's device time of one
+    call, the kernels' own.
+
+The module imports nothing of the package, so that a bench run on another
+tree of the port (``--root``) loads this file from its own tree by its
+path and times both trees with the same code.
+"""
+
+from __future__ import annotations
+
+
+def median_ms(fn, reps: int = 10, warmup: int = 2, inner: int = 1) -> float:
+    """Median over reps of the ms of one fn() call, timed by CUDA events
+    over ``inner`` calls back to back."""
+    import numpy as np
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return float(np.median(times))
+
+
+def device_profile(fn, reps: int = 10, warmup: int = 1):
+    """torch.profiler's device time of one fn() call for a fn that launches
+    each of its kernels once: (the sum over its kernels of their mean
+    duration over ``reps`` calls, the launches the profile recorded a call,
+    the kernels' names).  The mean is over the recorded launches: a
+    profile may miss some."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count]
+    return (sum(e.self_device_time_total / e.count for e in rows) / 1e3,
+            sum(e.count for e in rows) / reps,
+            sorted({e.key[:60] for e in rows}))
+
+
+def device_ms(fn, reps: int = 10, warmup: int = 1) -> float:
+    """device_profile's device ms of one fn() call."""
+    return device_profile(fn, reps, warmup)[0]

@@ -36,6 +36,7 @@ Only the card runs this: it exits when torch finds no CUDA device.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import inspect
 import json
 import subprocess
@@ -52,6 +53,16 @@ S_INVALID = 8 * (255 + 100) + 1  # configs/kitti_stereo.json
 HBM_BYTES_PER_S = 3.35e12
 
 
+def card_timing():
+    """utils/card_timing.py of this bench's own tree, whichever tree --root
+    names, so that both trees are timed by the same code."""
+    spec = importlib.util.spec_from_file_location(
+        "_fsgm_card_timing", Path(__file__).with_name("card_timing.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None)
@@ -59,58 +70,29 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
+    timing = card_timing()
     root = Path(args.root or Path(__file__).resolve().parents[2]).resolve()
     sys.path.insert(0, str(root))
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("k13_bench: no CUDA device available", file=sys.stderr)
         return 1
     from fsgm_tpu_torch.ops.kernels import _build, cost, extract
     from fsgm_tpu_torch.utils.k2_bench import card_line, parse_ptxas
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     takes_bits = "census_bits" in inspect.signature(
         cost.census_cost).parameters
 
-    def median_ms(fn):
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(args.reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return float(np.median(times))
-
-    def device_ms(fn):
-        """torch.profiler's device time per fn() call, and the kernels."""
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        return (sum(e.self_device_time_total for e in rows) / 1e3
-                / args.reps, sorted({e.key[:60] for e in rows}))
-
     def words(shape, bits):
         return torch.randint(0, 1 << bits, shape, generator=gen, device=dev,
                              dtype=torch.int64)
 
     def row(fn, nbytes, **kw):
-        dev_ms, names = device_ms(fn)
-        return dict(kw, ms=median_ms(fn), device_ms=dev_ms, kernels=names,
-                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        dev_ms, _, names = timing.device_profile(fn, args.reps)
+        return dict(kw, ms=timing.median_ms(fn, args.reps), device_ms=dev_ms,
+                    kernels=names, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_mhz = float(subprocess.run(

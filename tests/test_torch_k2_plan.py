@@ -155,7 +155,8 @@ def test_build_digest_covers_headers(tmp_path):
     for f in _build.SRC_DIR.iterdir():
         shutil.copy(f, tmp_path / f.name)
     src = tmp_path / "sgm_sweep.cu"
-    assert _build.included_headers(src) == [tmp_path / "sgm_walk.cuh"]
+    assert _build.included_headers(src) == [tmp_path / "cp_async.cuh",
+                                            tmp_path / "sgm_walk.cuh"]
     base = _build.source_digest(src)
     (tmp_path / "unused.cuh").write_text("// nothing includes this\n")
     assert _build.source_digest(src) == base
