@@ -30,7 +30,9 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
      K4 extract_flow against their plain versions, exact, on one flow level
      with a non-zero prior: the config-4 level-0 shape (375x1242, 81 labels
      padded to 96, blockwise_flow_pair(375, 1242, 8, seed=0)), and 37x53
-     with radius 2 and adaptive P2, and with an int32 S;
+     with radius 2 and adaptive P2, and with an int32 S; K5 also on random
+     bytes at each of config 4's four level shapes (375x1242 ... 46x155,
+     96 slots);
   4. stereo_sgm end to end against stereo_sgm_reference (plain versions
      only): identical invalid mask, valid disparities within 1e-3, D1-all
      against the ground truth, and each kernel's launch count in that call;
@@ -54,12 +56,13 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
      card, on PNGs written to a temporary directory;
   7. CUDA-event timings (median after warm-up) of each kernel and its plain
      version on the main paths' inputs (K2: the frame's 8 launches over
-     prebuilt P2' tables; the flow kernels at level 0, K4 also by its
-     torch.profiler device time beside the call's event time; K1, K2 and
-     K3 also over the 16 frames of the batched path), K5 beside PyTorch's
-     own axis exchange (library_ms), the device launches of the
-     plain-torch flow cost build and census, the pipelines end to end, and
-     the batched path's ms and launches per frame at B=1 and B=16;
+     prebuilt P2' tables; the flow kernels at level 0, K4 and K5 also by
+     their torch.profiler device time beside the call's event time; K1, K2
+     and K3 also over the 16 frames of the batched path), K5 beside PyTorch's
+     own axis exchange (library_ms, and its device time), the device
+     launches of the plain-torch flow cost build and census, the pipelines
+     end to end, and the batched path's ms and launches per frame at B=1
+     and B=16;
   8. tiled: (a) K2 with carry in and out against its plain version, exact:
      on one config-5 tile (rows 540..1079 of 2 frames, 3840x128) in the six
      vertical directions, each from the carry K2 exported over the tile
@@ -157,6 +160,8 @@ CLI_FRAMES = 4    # KITTI-size pairs through the batch CLI
 REPO = Path(__file__).resolve().parent
 FLOW_HW = (375, 1242)
 FLOW_SMALL = (37, 53)
+FLOW_LEVELS = tuple((FLOW_HW[0] >> k, FLOW_HW[1] >> k)
+                    for k in range(4))  # config 4's pyramid: K5's shapes
 FLOW_MAX_MAG = 8
 SEED = 0
 DISP_TOL = 1e-3  # f32 subpixel: both sides use the same IEEE formula
@@ -238,17 +243,19 @@ def ptxas_record() -> dict:
 
 def lib_ptxas_record() -> dict:
     """-Xptxas -v of cost.cu (K1), extract.cu (K3, wta_right),
-    extract_flow.cu (K4) and min16_probe.cu: per library the
-    instantiations, the worst registers, static shared memory and spill
+    extract_flow.cu (K4), transpose.cu (K5) and min16_probe.cu: per library
+    the instantiations, the worst registers, static shared memory and spill
     bytes, and the main path's instantiation [registers, smem, spill
     bytes]: K1 census_cost_kernel<NP=4, left, 32-bit words>, K3
     extract_kernel<K=4, int16, with the right view>, K4
-    extract_flow_kernel<K=3, int16>, min16_probe's packed form."""
+    extract_flow_kernel<K=3, int16>, K5 transpose_tiled_kernel<G=6> (96
+    label slots), min16_probe's packed form."""
     from fsgm_tpu_torch.ops.kernels import _build
     from fsgm_tpu_torch.utils.k2_bench import parse_ptxas
     main = {"cost": "census_cost_kernelILi4ELb0ELb1E",
             "extract": "extract_kernelILi4EsLi1E",
             "extract_flow": "extract_flow_kernelILi3EsE",
+            "transpose": "transpose_tiled_kernelILi6EE",
             "min16_probe": "min_kernelILi3EE"}
     out = {}
     for lib, tag in main.items():
@@ -264,8 +271,8 @@ def lib_ptxas_record() -> dict:
                             for r in recs),
             main=[hit[0]["registers"], hit[0]["smem"],
                   hit[0]["spill_stores"] + hit[0]["spill_loads"]])
-    print(f"ptxas cost.cu, extract.cu, extract_flow.cu and min16_probe.cu: "
-          f"{json.dumps(out)}")
+    print(f"ptxas cost.cu, extract.cu, extract_flow.cu, transpose.cu and "
+          f"min16_probe.cu: {json.dumps(out)}")
     return out
 
 
@@ -711,6 +718,23 @@ def check_flow_kernels(hw, params, dev, tag: str) -> dict:
     print(f"{tag} flow kernels == plain (S {s.dtype}, "
           f"{tuple(c.shape)} label-minor cost): {errs}")
     return errs
+
+
+def check_k5_levels(dev) -> dict:
+    """K5 against its plain version on random bytes at config 4's four
+    level shapes (96 label slots); the largest absolute error (must be
+    0)."""
+    from fsgm_tpu_torch.ops.kernels import transpose
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    err = 0
+    for h, w in FLOW_LEVELS:
+        vol = torch.randint(0, 256, (h, 96, w), generator=gen, device=dev,
+                            dtype=torch.uint8)
+        err = max(err, max_err(transpose.label_minor_from_major(vol),
+                               transpose.label_minor_from_major_plain(vol)))
+    require(err == 0, "K5 != plain at a config-4 level shape")
+    print(f"K5 == plain at config 4's level shapes {FLOW_LEVELS} x 96")
+    return {"label_minor_from_major": err}
 
 
 def merge_errs(*dicts) -> dict:
@@ -1758,6 +1782,7 @@ def main() -> int:
     fwide = FlowParams(search_radius=2, levels=3, p2=5000)  # int32 S
     errs = merge_errs(errs, check_flow_kernels(FLOW_SMALL, fwide, dev,
                                                "37x53 radius 2 int32 S"))
+    errs = merge_errs(errs, check_k5_levels(dev))
 
     # 4. the stereo path end to end, launches counted in this call only
     h, w, d = KITTI
@@ -1903,9 +1928,14 @@ def main() -> int:
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, library_ms=lib_ms)
         lib_txt = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
-        if name == "extract_flow":  # the kernel's own time beside the call's
+        if name in ("extract_flow", "label_minor_from_major"):
+            # the kernel's own time beside the call's
             times[name]["device_ms"] = device_ms(kern)
             lib_txt += f", device {times[name]['device_ms']:.4f} ms"
+        if lib is not None:
+            times[name]["library_device_ms"] = device_ms(lib)
+            lib_txt += (f", library device "
+                        f"{times[name]['library_device_ms']:.4f} ms")
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms by {b_by} ({nbytes} B, {nops} ops)"
               f"{lib_txt} (shape {shape}; {card_line})")
@@ -2075,6 +2105,8 @@ def main() -> int:
             row["probe_shape"] = vtimes["wta_right_probe"]
         if name == "extract_flow":  # the row's times: config-4 level 0
             row["ptxas"] = lib_ptxas["extract_flow"]
+        if name == "label_minor_from_major":  # config-4 level 0, 96 slots
+            row["ptxas"] = lib_ptxas["transpose"]
         if name == "min16_probe":  # the row's times: the packed form
             row.update(forms=vtimes["min16"]["forms"], n=MIN16_N,
                        library_int32_ms=vtimes["min16"]["library_int32_ms"],

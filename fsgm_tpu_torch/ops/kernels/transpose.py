@@ -3,10 +3,12 @@
 Replaces fsgm_tpu/ops/pallas/transpose_pallas.py::label_minor_from_major,
 which ran the TPU flow backend's label-major cost planes through an
 in-VMEM butterfly into the label-minor layout its sweeps read (L padded to
-128, W to a multiple of 128).  Here any L and W: the CUDA kernel
-(csrc/transpose.cu) is a shared-memory tiled transpose, and
-``label_minor_from_major_plain`` is PyTorch's own axis exchange, which the
-port's GPU path never calls.
+128, W to a multiple of 128).  Here any L and W, at any base address: the
+CUDA kernel (csrc/transpose.cu) takes tiles of TILE_W columns of one row
+with all L labels where L is a multiple of LABEL_GROUP up to
+MAX_TILED_LABELS (``tiled``; every flow path), and a generic 32 x 32 byte
+tile otherwise.  ``label_minor_from_major_plain`` is PyTorch's own axis
+exchange, which the port's GPU path never calls.
 """
 
 from __future__ import annotations
@@ -14,6 +16,30 @@ from __future__ import annotations
 import torch
 
 from fsgm_tpu_torch.ops.kernels import _build
+
+# the tiled kernel's layout (csrc/transpose.cu kChunk, kTileW, kRowChunks,
+# kMaxGroups): 16 labels a warp and a 16-byte store, 128 columns a tile,
+# the 9 aligned 16-byte chunks that cover a label row's 128 columns at any
+# shift, 16 label groups at most
+LABEL_GROUP = 16
+TILE_W = 128
+ROW_CHUNKS = TILE_W // LABEL_GROUP + 1
+MAX_TILED_LABELS = 256
+
+
+def tiled(nl: int) -> bool:
+    """Whether nl labels take the tiled kernel (else the generic one)."""
+    return nl % LABEL_GROUP == 0 and 0 < nl <= MAX_TILED_LABELS
+
+
+def staged_bytes(nl: int) -> int:
+    """Shared memory of one tiled-kernel block (one tile) for nl labels:
+    nl staged rows of ROW_CHUNKS chunks and the staged output, each 4-pixel
+    quad at 4 G + 1 chunks for G = nl / 16 (csrc/transpose.cu
+    smem_bytes)."""
+    g = nl // LABEL_GROUP
+    return (nl * ROW_CHUNKS * LABEL_GROUP
+            + TILE_W // 4 * (4 * g + 1) * LABEL_GROUP)
 
 
 def label_minor_from_major_plain(vol: torch.Tensor) -> torch.Tensor:
@@ -31,10 +57,10 @@ def label_minor_from_major(vol: torch.Tensor) -> torch.Tensor:
     if vol.device.type != "cuda":
         raise ValueError(f"label_minor_from_major: unsupported device "
                          f"{vol.device}")
-    h, nl, w = vol.shape
-    if not vol.is_contiguous() or h > 65535:
+    if not vol.is_contiguous():
         raise ValueError(f"label_minor_from_major kernel needs a contiguous "
-                         f"volume with H <= 65535, got {tuple(vol.shape)}")
+                         f"volume, got strides {vol.stride()}")
+    h, nl, w = vol.shape
     out = torch.empty((h, w, nl), dtype=torch.uint8, device=vol.device)
     if out.numel() == 0:
         return out
