@@ -2,17 +2,18 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
-Seven main paths: stereo (configs/kitti_stereo.json, 375x1242, D=128), fSGM
-flow (configs/kitti_flow.json, 375x1242, 4 levels, 81 labels), batched
-stereo (stereo_sgm_batch, 16 frames of config 2 in one pass), tiled stereo
-(stereo_sgm_sharded at config 5, configs/tiled_4k.json: 2 frames of
-2160x3840, D=128, 2 frame shards x 4 row tiles, fast mode) and tiled flow
-(flow_fsgm_sharded, config 4 at 4K with 5 levels, 3 row tiles).  K2 runs
-as aggregate_paths plans it on the card (launch_plan, a choice a direction
-group): for one KITTI frame the vertical directions one launch each
-(sgm_sweep) and the horizontal pair in one family launch
-(sgm_sweep_family), every flow level in family launches, 16 frames and the
-tiled paths one launch per direction.
+Seven main paths and three entry points: stereo (configs/kitti_stereo.json,
+375x1242, D=128), fSGM flow (configs/kitti_flow.json, 375x1242, 4 levels,
+81 labels), batched stereo (stereo_sgm_batch, 16 frames of config 2 in one
+pass), tiled stereo (stereo_sgm_sharded at config 5, configs/tiled_4k.json:
+2 frames of 2160x3840, D=128, 2 frame shards x 4 row tiles, fast mode) and
+tiled flow (flow_fsgm_sharded, config 4 at 4K with 5 levels, 3 row tiles);
+the bench (fsgm_tpu_torch/bench.py: bench.py's six cells), `cli video` and
+`cli kitti` (phase 10). K2 runs as aggregate_paths plans it on the card
+(launch_plan, a choice a direction group): for one KITTI frame the vertical
+directions one launch each (sgm_sweep) and the horizontal pair in one
+family launch (sgm_sweep_family), every flow level in family launches, 16
+frames and the tiled paths one launch per direction.
 Phases, each of which raises on failure (non-zero exit, no ok line):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -111,7 +112,25 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
      (each count read from one call), each KITTI direction alone (ns a
      step), and the plan against both forms over 1 to 8 KITTI frames
      (D=128) and 1 to 16 config-1 frames (D=64) around the rule's
-     thresholds.
+     thresholds;
+ 10. the bench, video and kitti entry points, each run through the CLI's
+     main() in this process with the launch counts cleared just before
+     and read just after: `bench --config C` for each of bench.py's six
+     cells at its full shape and batch (exactly one stdout line with the
+     cell's metric and a positive value; each cell's K1, K2 and K3
+     launches held to the warm-up and timed calls' plan, K2 also on
+     flow), its ms/frame, first_call_s, peak MiB, vs_SoL and guard verdict
+     printed (the guard is not enforced: its verdict depends on the
+     card); `python -m fsgm_tpu_torch.cli bench --config kitti` once with
+     --stages (every stage reported) and once with --trace (the trace
+     file exists) in their own processes; `video` over 4 frames of
+     constant_flow_sequence(375, 1242, 3, -2) at config 4 with
+     --track-levels 2 into .flo files, equal within 1e-3 (identical
+     valid masks) to flow_sequence in this process and to the plain
+     chain (flow_fsgm_reference with each pair's prior); `kitti stereo`
+     (config 2) and `kitti flow` (config 4) over a 2-frame 375x1242
+     KITTI 2015 tree written here, each record equal to stereo_sgm /
+     flow_fsgm scored in this process.
 
 Each kernel's bound_ms is the larger of two times for this run's shapes:
 the bytes it must move (each input read once, each output written once;
@@ -180,26 +199,30 @@ SOURCES = {
                     ["fsgm_tpu/ops/pallas/cost_tr.py:264",
                      "fsgm_tpu/ops/pallas/cost_tr.py:158",
                      "fsgm_tpu/ops/pallas/cost_pallas.py:56"],
-                    ("stereo", "stereo_batch", "stereo_tiled")),
+                    ("stereo", "stereo_batch", "stereo_tiled", "bench",
+                     "kitti")),
     "sgm_sweep": ("sgm_sweep", "fsgm_tpu/ops/pallas/aggregate_tr.py:289",
                   ["fsgm_tpu/ops/pallas/aggregate_pallas.py:297",
                    "fsgm_tpu/ops/pallas/aggregate_pallas.py:420"],
-                  ("stereo_batch", "stereo", "stereo_tiled", "flow_tiled")),
+                  ("stereo_batch", "stereo", "stereo_tiled", "flow_tiled",
+                   "bench", "kitti")),
     "sgm_sweep_family": ("sgm_sweep",
                          "fsgm_tpu/ops/pallas/aggregate_tr.py:451",
-                         ["tools/trexp.py:102"], ("stereo", "flow")),
+                         ["tools/trexp.py:102"],
+                         ("stereo", "flow", "bench", "video", "kitti")),
     "extract_stereo": ("extract", "fsgm_tpu/ops/pallas/extract_tr.py:227",
                        ["fsgm_tpu/ops/pallas/extract_pallas.py:82"],
-                       ("stereo", "stereo_batch", "stereo_tiled")),
+                       ("stereo", "stereo_batch", "stereo_tiled", "bench",
+                        "kitti")),
     "wta_right": ("extract", "fsgm_tpu/ops/pallas/extract_tr.py:299",
                   ["tools/strideroll_probe.py:34",
                    "tools/strideroll_probe.py:59",
                    "tests/unit/test_property.py:142"], ()),
     "extract_flow": ("extract_flow", "fsgm_tpu/ops/pallas/extract_tr.py:387",
-                     None, ("flow", "flow_tiled")),
+                     None, ("flow", "flow_tiled", "bench", "video", "kitti")),
     "label_minor_from_major": (
         "transpose", "fsgm_tpu/ops/pallas/transpose_pallas.py:83", None,
-        ("flow", "flow_tiled")),
+        ("flow", "flow_tiled", "bench", "video", "kitti")),
     "min16_probe": ("min16_probe", "tools/tr_int16_probe.py:41", None, ()),
 }
 PROBE_SHAPE = (376, 1280, 128)  # tools/strideroll_probe.py's H, W, L
@@ -207,6 +230,9 @@ MIN16_N = 1 << 26               # values per min16_probe input
 CONFIG5 = "configs/tiled_4k.json"
 UHD_FLOW_LEVELS = 5  # bench.py's 4kflow leg: config 4 with one more level
 FOREIGN = ("jax", "fsgm_tpu", "golden")
+VIDEO_FRAMES = 4        # constant_flow_sequence frames through `cli video`
+KITTI_FRAMES = 2        # frames of each task in the written devkit tree
+ENTRY_MOTION = (3, -2)  # (u, v) of the video and kitti flow frames
 SGM_KERNELS = ("sgm_sweep", "sgm_sweep_family")  # K2's two launch forms
 
 
@@ -1723,6 +1749,259 @@ def time_family(params, tparams, fparams, dev, card_line: str) -> dict:
     return rows
 
 
+def cli_here(args) -> tuple[list[str], list[str], dict]:
+    """fsgm_tpu_torch.cli main(args + --device cuda) in this process:
+    (its stdout lines, its stderr lines, {kernel: launches} counted from a
+    clear just before it to just after it)."""
+    from io import StringIO
+    from fsgm_tpu_torch.cli.main import main as cli_main
+    from fsgm_tpu_torch.ops.kernels import _build
+    out, err = StringIO(), StringIO()
+    _build.LAUNCHES.clear()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main([*args, "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    require(rc == 0, f"cli {args} exit {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue().splitlines(), err.getvalue().splitlines(), launches
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in {*total, *more}}
+
+
+def bench_line(lines: list[str], metric: str, tag: str) -> dict:
+    """The bench's one stdout record, checked."""
+    require(len(lines) == 1, f"{tag}: {len(lines)} stdout lines: {lines}")
+    rec = json.loads(lines[0])
+    require(list(rec) == ["metric", "value", "unit", "vs_baseline"]
+            and rec["metric"] == metric and rec["value"] > 0
+            and rec["unit"] == "Mpixel*disp/s", f"{tag}: record {rec}")
+    return rec
+
+
+def check_bench(dev, card_line: str) -> dict:
+    """10: every bench cell at its shape and batch; the bench path's
+    launches (all six cells)."""
+    from fsgm_tpu_torch import bench
+    calls = 1 + bench.REPEATS
+    total = {}
+    for cfg, (h, w, d, batch, metric, _) in bench.CONFIGS.items():
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        lines, err, n = cli_here(["bench", "--config", cfg])
+        wall = time.perf_counter() - t0
+        rec = bench_line(lines, metric, f"bench {cfg}")
+        ctx = json.loads(next(x for x in err if x.startswith("# bench "))
+                         [len("# bench "):])
+        guard = [x[2:] for x in err if x.startswith("# guard")]
+        require(ctx["batch"] == batch and ctx["shape"] == [h, w, d]
+                and ctx["card"] == torch.cuda.get_device_name(0),
+                f"bench {cfg} context {ctx}")
+        p = bench.bench_params(cfg)
+        if cfg in bench.FLOW_CELLS:
+            k2 = flow_k2_launches(torch.zeros((h, w), dtype=torch.uint8,
+                                              device=dev), p, dev)
+            want = {k: v * calls * batch for k, v in k2.items()}
+            got = {k: v for k, v in n.items() if k in SGM_KERNELS}
+            require(got == want and n.get("extract_flow", 0) > 0
+                    and n.get("label_minor_from_major", 0) > 0
+                    and len(n) == 2 + len(want),
+                    f"bench {cfg} launches {n}, K2 wanted {want}")
+        else:
+            want = {"census_cost": calls, "extract_stereo": calls,
+                    **{k: v * calls for k, v in k2_launches(
+                        (batch, h, w, d), dev, p.dirs, p).items()}}
+            require(n == want, f"bench {cfg} launches {n} != {want}")
+        total = add_counts(total, n)
+        print(f"bench {cfg}: {json.dumps(rec)}; B={batch} "
+              f"{ctx['ms_frame']:.4f} ms/frame, first_call_s "
+              f"{ctx['first_call_s']:.3f}, peak {ctx['peak_mib']} MiB, "
+              f"vs_SoL {ctx['vs_SoL']}; {'; '.join(guard)}; launches {n}; "
+              f"{wall:.1f} s ({card_line})")
+    return total
+
+
+def check_bench_cli(card_line: str) -> dict:
+    """10: `python -m fsgm_tpu_torch.cli bench --config kitti` with
+    --stages and with --trace, each in its own process."""
+    from fsgm_tpu_torch import bench
+    from fsgm_tpu_torch.utils.profiling import TRACE_FILE
+    metric = bench.CONFIGS["kitti"][4]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for flag in (["--stages"], ["--trace", tmp]):
+            proc = subprocess.run(
+                [sys.executable, "-m", "fsgm_tpu_torch.cli", "bench",
+                 "--config", "kitti", *flag], cwd=REPO, capture_output=True,
+                text=True, timeout=600)
+            require(proc.returncode == 0, f"bench {flag} exit "
+                    f"{proc.returncode}: {proc.stderr[-2000:]}")
+            rec = bench_line(proc.stdout.splitlines(), metric,
+                             f"bench kitti {flag[0]}")
+            print(f"bench kitti {flag[0]} (own process): {json.dumps(rec)}")
+            if flag[0] == "--stages":
+                stages = [json.loads(x) for x in proc.stderr.splitlines()
+                          if x.startswith('{"stage"')]
+                require([r["stage"] for r in stages] == [
+                    "census_cost", "agg_down", "agg_up", "agg_cols",
+                    "extract"] and all(r["wall_s"] > 0 and r["bytes"] > 0
+                                       for r in stages),
+                    f"stages {stages}")
+                for r in stages:
+                    print(f"stage {json.dumps(r)} ({card_line})")
+                out["stages"] = stages
+            else:
+                trace = Path(tmp) / TRACE_FILE
+                require(trace.is_file() and trace.stat().st_size > 0,
+                        f"no trace at {trace}")
+                print(f"bench kitti --trace: {trace.name} "
+                      f"{trace.stat().st_size} bytes")
+    return out
+
+
+def check_video(dev) -> dict:
+    """10: `cli video` over 4 KITTI-size frames at config 4 with
+    --track-levels 2, .flo out, against flow_sequence and the plain chain;
+    the video path's launches."""
+    from fsgm_tpu_torch import flow_fsgm_reference, flow_sequence
+    from fsgm_tpu_torch.io import constant_flow_sequence, read_flo, save_gray
+    preset = str(REPO / "configs" / "kitti_flow.json")
+    fp = load_flow_preset()
+    tp = dataclasses.replace(fp, levels=2)
+    frames, _ = constant_flow_sequence(*FLOW_HW, *ENTRY_MOTION,
+                                       VIDEO_FRAMES, seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        names = []
+        for t, f in enumerate(frames):
+            save_gray(tmp / f"f{t}.png", f)
+            names.append(str(tmp / f"f{t}.png"))
+        (tmp / "frames.txt").write_text("\n".join(names) + "\n")
+        lines, _, launches = cli_here(
+            ["video", str(tmp / "frames.txt"), "-o", str(tmp / "out"),
+             "--format", "flo", "--preset", preset, "--track-levels", "2"])
+        recs = [json.loads(x) for x in lines]
+        written = [read_flo(tmp / "out" / f"f{t}.flo")
+                   for t in range(VIDEO_FRAMES - 1)]
+    print(f"launches in one `cli video` run ({VIDEO_FRAMES} frames): "
+          f"{launches}")
+    seq = torch.from_numpy(frames).to(dev)
+    flows, valids = flow_sequence(seq, fp, track_params=tp)
+    prev, worst = None, 0.0
+    for t in range(VIDEO_FRAMES - 1):
+        ref, ref_valid = flow_fsgm_reference(
+            seq[t], seq[t + 1], fp if prev is None else tp, prior_flow=prev)
+        prev = torch.where(ref_valid[..., None], ref, 0.0)
+        valid = valids[t]
+        require(torch.equal(valid, ref_valid), f"video pair {t}: valid "
+                "mask != the plain chain's")
+        require(bool(valid.any()), f"video pair {t}: no valid pixel")
+        err = float((flows[t] - ref)[valid].abs().max())
+        masked = torch.where(valid[..., None], flows[t], 0.0).cpu().numpy()
+        got_err = float(np.abs(written[t] - masked).max())
+        require(err <= FLOW_TOL and got_err <= FLOW_TOL,
+                f"video pair {t}: |flow - plain| {err}, |.flo - "
+                f"flow_sequence| {got_err}")
+        require(recs[t] == {"cmd": "video", "pair": t,
+                            "out": str(tmp / "out" / f"f{t}"),
+                            "valid_frac": round(float(
+                                valid.float().mean()), 4)},
+                f"video record {recs[t]}")
+        worst = max(worst, err, got_err)
+    require(recs[-1]["pairs"] == VIDEO_FRAMES - 1, f"video summary {recs}")
+    print(f"cli video ({VIDEO_FRAMES} frames of {FLOW_HW}, config 4, track "
+          f"levels 2, .flo): == flow_sequence and the plain chain within "
+          f"{worst}, valid masks equal; {recs[-1]}")
+    return launches
+
+
+def load_flow_preset():
+    from fsgm_tpu_torch import load_preset
+    return load_preset(str(REPO / "configs" / "kitti_flow.json"))["flow"]
+
+
+def write_kitti_tree(root: Path, task: str) -> None:
+    """A KITTI 2015 training tree of KITTI_FRAMES frames: stereo pairs
+    (random-dot, D=128, ground-truth disparity) or flow pairs (constant
+    motion, ground-truth flow)."""
+    from fsgm_tpu_torch.io import (constant_flow_pair, random_dot_stereo,
+                                   save_gray, write_disparity_png,
+                                   write_flow_png)
+    tr = root / "training"
+    subs = (("image_2", "image_3", "disp_occ_0") if task == "stereo"
+            else ("image_2", "flow_occ"))
+    for sub in subs:
+        (tr / sub).mkdir(parents=True)
+    h, w, d = KITTI
+    for i in range(KITTI_FRAMES):
+        name = f"{i:06d}_10.png"
+        if task == "stereo":
+            il, ir, gt = random_dot_stereo(h, w, d, seed=SEED + 60 + i)
+            save_gray(tr / "image_2" / name, il)
+            save_gray(tr / "image_3" / name, ir)
+            write_disparity_png(tr / "disp_occ_0" / name,
+                                gt.astype(np.float64))
+        else:
+            i1, i2, fgt = constant_flow_pair(h, w, *ENTRY_MOTION,
+                                             seed=SEED + 70 + i)
+            save_gray(tr / "image_2" / name, i1)
+            save_gray(tr / "image_2" / f"{i:06d}_11.png", i2)
+            write_flow_png(tr / "flow_occ" / name, fgt,
+                           np.ones((h, w), dtype=bool))
+
+
+def check_kitti(dev, params) -> dict:
+    """10: `cli kitti stereo` (config 2) and `cli kitti flow` (config 4)
+    over a written KITTI 2015 tree, each record equal to stereo_sgm /
+    flow_fsgm scored here; the kitti path's launches (both runs)."""
+    from fsgm_tpu_torch import flow_fsgm, stereo_sgm
+    from fsgm_tpu_torch.eval import d1_all, fl_all
+    from fsgm_tpu_torch.io.datasets import (KittiFlowDataset,
+                                            KittiStereoDataset)
+    fp = load_flow_preset()
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for task, preset in (("stereo", "kitti_stereo.json"),
+                             ("flow", "kitti_flow.json")):
+            root = Path(tmp) / task
+            write_kitti_tree(root, task)
+            lines, _, n = cli_here(["kitti", task, str(root), "--preset",
+                                    str(REPO / "configs" / preset)])
+            print(f"launches in one `cli kitti {task}` run "
+                  f"({KITTI_FRAMES} frames): {n}")
+            total = add_counts(total, n)
+            recs = [json.loads(x) for x in lines]
+            if task == "stereo":
+                ds = KittiStereoDataset(root, year=2015)
+                want = [d1_all(stereo_sgm(
+                    torch.tensor(s.left, device=dev),
+                    torch.tensor(s.right, device=dev), params).cpu().numpy(),
+                    s.gt.astype(np.float64), s.gt_valid) for s in ds]
+            else:
+                ds = KittiFlowDataset(root, year=2015)
+                want = []
+                for s in ds:
+                    fl, va = flow_fsgm(torch.tensor(s.img1, device=dev),
+                                       torch.tensor(s.img2, device=dev), fp)
+                    want.append(fl_all(fl.cpu().numpy(), s.gt, s.gt_valid,
+                                       pred_valid=va.cpu().numpy()))
+            got = [{k: v for k, v in r.items() if k not in ("frame",
+                                                             "wall_s")}
+                   for r in recs[:-1]]
+            require(got == want and [r["frame"] for r in recs[:-1]]
+                    == ds.ids, f"kitti {task} records {recs} != {want}")
+            key, entry = (("d1_all", "stereo_sgm") if task == "stereo"
+                          else ("fl_all", "flow_fsgm"))
+            require(recs[-1]["frames"] == recs[-1]["scored"] == KITTI_FRAMES
+                    and recs[-1][key] == round(float(np.mean(
+                        [m[key] for m in want])), 4),
+                    f"kitti {task} summary {recs[-1]}")
+            print(f"cli kitti {task} ({KITTI_FRAMES} frames of {KITTI[:2]}):"
+                  f" records == {entry} scored here; {recs[-1]}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2056,6 +2335,16 @@ def main() -> int:
                                  card_line)
     vtimes = time_family(params, tparams, fparams, dev, card_line)
     print(f"phase 9: {time.perf_counter() - t9:.2f} s")
+
+    # 10. the bench (six cells), video and kitti entry points through the
+    #     CLI, launches counted per entry point
+    t10 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches["bench"] = check_bench(dev, card_line)
+    check_bench_cli(card_line)
+    launches["video"] = check_video(dev)
+    launches["kitti"] = check_kitti(dev, params)
+    print(f"phase 10: {time.perf_counter() - t10:.2f} s")
     times["sgm_sweep_family"] = {k: vtimes["family"][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     times["wta_right"] = {k: vtimes["wta_right"][k] for k in (

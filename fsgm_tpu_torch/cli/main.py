@@ -4,15 +4,22 @@
         --preset configs/kitti_stereo.json [--lr-mode reagg] [--fill-invalid]
     python -m fsgm_tpu_torch.cli flow A.png B.png -o f.png \\
         --preset configs/kitti_flow.json
+    python -m fsgm_tpu_torch.cli video frames.txt -o outdir --format flo \\
+        --preset configs/kitti_flow.json [--track-levels 2]
     python -m fsgm_tpu_torch.cli batch pairs.txt --manifest run.jsonl \\
         --preset configs/kitti_stereo.json --dispatch-batch 16 [--fault-inject N]
     python -m fsgm_tpu_torch.cli serve --preset configs/kitti_stereo.json \\
         [--pipeline K] < requests.jsonl
     python -m fsgm_tpu_torch.cli demo
     python -m fsgm_tpu_torch.cli eval stereo|flow pred.png gt.png
+    python -m fsgm_tpu_torch.cli kitti stereo|flow ROOT --year 2015 \\
+        [--preset configs/kitti_stereo.json] [--output-dir pred]
+    python -m fsgm_tpu_torch.cli bench --config kitti [--stages] [--guard]
 
-Counterpart of fsgm_tpu/cli/main.py ``stereo``, ``flow``, ``batch``,
-``serve``, ``demo`` and ``eval``; each prints the same JSON records.  With
+Counterpart of fsgm_tpu/cli/main.py ``stereo``, ``flow``, ``video``,
+``batch``, ``serve``, ``demo``, ``eval``, ``kitti`` and ``bench``; each
+prints the same JSON records (``bench``: fsgm_tpu_torch/bench.py, in this
+process).  With
 ``--preset``, the preset's parameters are taken as they are, as in the
 reference.  ``--device`` defaults to ``cuda`` and fails when no card is
 present; ``--device cpu`` runs the plain PyTorch versions of the kernels.
@@ -173,6 +180,50 @@ def cmd_flow(args) -> int:
     print(json.dumps({"cmd": "flow", "out": str(out),
                       "wall_s": round(dt, 4),
                       "valid_frac": round(float(valid.mean()), 4)}))
+    return 0
+
+
+def cmd_video(args) -> int:
+    """fSGM over a frame sequence with temporal priors: pair 0 runs the
+    full pyramid, later pairs seed their coarsest level with the previous
+    pair's field (models/flow.py::flow_sequence), through a pyramid of
+    --track-levels levels where given."""
+    from fsgm_tpu_torch.models.flow import flow_sequence
+
+    dev = _device(args.device)
+    p = _params_from_args(args, FlowParams)
+    tp = (dataclasses.replace(p, levels=args.track_levels)
+          if args.track_levels else None)
+    frame_paths = [ln.strip() for ln in
+                   Path(args.list).read_text().splitlines() if ln.strip()]
+    if len(frame_paths) < 2:
+        print("need at least 2 frames", file=sys.stderr)
+        return 2
+    frames = _stack([io.load_gray(f) for f in frame_paths], dev, "video")
+    outdir = Path(args.outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    flows, valids = flow_sequence(frames, p, track_params=tp)
+    flows, valids = flows.cpu().numpy(), valids.cpu().numpy()
+    dt = time.perf_counter() - t0
+    for t in range(flows.shape[0]):
+        name = Path(frame_paths[t]).stem
+        if args.fill_invalid:
+            fl = densify_flow(flows[t], valids[t])
+            wr_valid = np.ones_like(valids[t])
+        else:
+            fl = np.where(valids[t][..., None], flows[t], 0)
+            wr_valid = valids[t]
+        if args.format == "flo":
+            io.write_flo(outdir / f"{name}.flo", fl)
+        else:
+            io.write_flow_png(outdir / f"{name}.png", fl, wr_valid)
+        print(json.dumps({"cmd": "video", "pair": t,
+                          "out": str(outdir / name),
+                          "valid_frac": round(float(valids[t].mean()), 4)}))
+    print(json.dumps({"cmd": "video", "pairs": int(flows.shape[0]),
+                      "wall_s": round(dt, 4),
+                      "ms_per_pair": round(1e3 * dt / flows.shape[0], 2)}))
     return 0
 
 
@@ -421,7 +472,82 @@ def cmd_demo(args) -> int:
     return 0
 
 
+def cmd_kitti(args) -> int:
+    """A KITTI 2012/2015 devkit tree: one JSON record per frame (wall_s,
+    and D1-all / Fl-all where the split has ground truth), then the
+    summary; --output-dir writes the predictions in devkit naming.  Flow
+    runs FlowParams() unless --preset gives other parameters."""
+    from fsgm_tpu_torch.eval import d1_all, fl_all
+    from fsgm_tpu_torch.io.datasets import (KittiFlowDataset,
+                                            KittiStereoDataset)
+
+    dev = _device(args.device)
+    outdir = Path(args.output_dir) if args.output_dir else None
+    if outdir:
+        outdir.mkdir(parents=True, exist_ok=True)
+    records = []
+    if args.task == "stereo":
+        from fsgm_tpu_torch.models.stereo import stereo_sgm
+        ds = KittiStereoDataset(args.root, year=args.year, split=args.split,
+                                occ=not args.noc)
+        p = _params_from_args(args, SGMParams)
+        for smp in ds:
+            t0 = time.perf_counter()
+            disp = stereo_sgm(torch.tensor(smp.left, device=dev),
+                              torch.tensor(smp.right, device=dev),
+                              p).cpu().numpy()
+            rec = {"frame": smp.name,
+                   "wall_s": round(time.perf_counter() - t0, 4)}
+            if smp.gt is not None:
+                rec.update(d1_all(disp, smp.gt.astype(np.float64),
+                                  smp.gt_valid))
+            if outdir:
+                io.write_disparity_png(outdir / f"{smp.name}_10.png", disp)
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        err_key = "d1_all"
+    else:
+        from fsgm_tpu_torch.models.flow import flow_fsgm
+        ds = KittiFlowDataset(args.root, year=args.year, split=args.split,
+                              occ=not args.noc)
+        p = _params_from_args(args, FlowParams) if args.preset \
+            else FlowParams()
+        for smp in ds:
+            t0 = time.perf_counter()
+            flow, valid = flow_fsgm(torch.tensor(smp.img1, device=dev),
+                                    torch.tensor(smp.img2, device=dev), p)
+            flow, valid = flow.cpu().numpy(), valid.cpu().numpy()
+            rec = {"frame": smp.name,
+                   "wall_s": round(time.perf_counter() - t0, 4)}
+            if smp.gt is not None:
+                rec.update(fl_all(flow, smp.gt, smp.gt_valid,
+                                  pred_valid=valid))
+            if outdir:
+                io.write_flow_png(outdir / f"{smp.name}_10.png",
+                                  np.where(valid[..., None], flow, 0),
+                                  valid)
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        err_key = "fl_all"
+    scored = [r for r in records if err_key in r]
+    summary = {"cmd": "kitti", "task": args.task, "year": args.year,
+               "frames": len(records), "scored": len(scored)}
+    if scored:
+        summary[err_key] = round(
+            float(np.mean([r[err_key] for r in scored])), 4)
+        summary["mean_wall_s"] = round(
+            float(np.mean([r["wall_s"] for r in records])), 4)
+    print(json.dumps(summary))
+    return 0
+
+
+def cmd_bench(args) -> int:
+    from fsgm_tpu_torch import bench
+    return bench.run_args(args)
+
+
 def build_parser() -> argparse.ArgumentParser:
+    from fsgm_tpu_torch import bench
     ap = argparse.ArgumentParser(prog="fsgm_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     sp = sub.add_parser("stereo", help="disparity for a rectified pair")
@@ -446,6 +572,26 @@ def build_parser() -> argparse.ArgumentParser:
                     "nearest valid row neighbour")
     fp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     fp.set_defaults(fn=cmd_flow)
+
+    vp = sub.add_parser("video",
+                        help="fSGM over a frame sequence (temporal prior)")
+    vp.add_argument("list", help="file of frame paths, one per line")
+    vp.add_argument("-o", "--outdir", required=True)
+    vp.add_argument("--format", default="png", choices=["png", "flo"])
+    vp.add_argument("--preset", help="configs/*.json preset file")
+    vp.add_argument("--search-radius", dest="search_radius", type=int)
+    vp.add_argument("--levels", type=int)
+    vp.add_argument("--track-levels", dest="track_levels", type=int,
+                    default=0, help="pyramid depth of the tracked pairs "
+                    "(0 = that of pair 0)")
+    vp.add_argument("--p1", type=int)
+    vp.add_argument("--p2", type=int)
+    vp.add_argument("--fill-invalid", dest="fill_invalid",
+                    action="store_true",
+                    help="densify: fill FB-invalidated pixels from the "
+                    "nearest valid row neighbour")
+    vp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    vp.set_defaults(fn=cmd_video)
 
     bp = sub.add_parser("batch", help="batch stereo with a resume manifest")
     bp.add_argument("list", help="file of lines: left right out.png")
@@ -483,6 +629,25 @@ def build_parser() -> argparse.ArgumentParser:
     ep.add_argument("pred")
     ep.add_argument("gt")
     ep.set_defaults(fn=cmd_eval)
+
+    kp = sub.add_parser("kitti",
+                        help="run a KITTI 2012/2015 devkit directory")
+    kp.add_argument("task", choices=["stereo", "flow"])
+    kp.add_argument("root", help="dataset root (holds training/testing)")
+    kp.add_argument("--year", type=int, default=2015, choices=[2012, 2015])
+    kp.add_argument("--split", default="training")
+    kp.add_argument("--noc", action="store_true",
+                    help="score against the noc (non-occluded) ground "
+                    "truth, not occ")
+    kp.add_argument("--output-dir", dest="output_dir",
+                    help="write predictions here (devkit naming)")
+    _add_stereo_args(kp)
+    kp.set_defaults(fn=cmd_kitti)
+
+    bnp = sub.add_parser("bench", help="throughput harness "
+                         "(fsgm_tpu_torch/bench.py)")
+    bench.add_arguments(bnp)
+    bnp.set_defaults(fn=cmd_bench)
     return ap
 
 

@@ -1,5 +1,5 @@
 """KITTI devkit disparity / flow PNG readers and writers and the
-Middlebury .flo writer.
+Middlebury .flo reader and writer.
 
 The port's own copy of the codecs of fsgm_tpu/io/kitti.py: the writers
 write byte for byte the same files, the readers return the same arrays:
@@ -149,6 +149,17 @@ def write_png16(path, arr: np.ndarray) -> None:
            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
     with open(path, "wb") as f:
         f.write(png)
+
+
+def read_flo(path) -> np.ndarray:
+    """(H, W, 2) float32 flow of a .flo file; ValueError on a bad magic."""
+    with open(path, "rb") as f:
+        magic = struct.unpack("<f", f.read(4))[0]
+        if abs(magic - FLO_MAGIC) > 1e-3:
+            raise ValueError(f"bad .flo magic {magic} in {path}")
+        w, h = struct.unpack("<ii", f.read(8))
+        data = np.frombuffer(f.read(), dtype="<f4", count=h * w * 2)
+    return data.reshape(h, w, 2).copy()
 
 
 def write_flo(path, flow: np.ndarray) -> None:

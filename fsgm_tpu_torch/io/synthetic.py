@@ -5,7 +5,9 @@ uses: the same seed gives the same arrays in both packages.
 
 * random-dot stereograms with piecewise-constant integer disparity;
 * textured pairs moved by a known integer flow (constant, a sliding
-  sequence, or a moving block over a static background).
+  sequence, or a moving block over a static background);
+* pairs shifted by a constant non-integer disparity or flow, resampled
+  bilinearly from a band-limited texture (the subpixel stage's fixtures).
 """
 
 from __future__ import annotations
@@ -79,6 +81,66 @@ def random_dot_stereo(h: int, w: int, max_disp: int, seed: int = 0,
     noise = _texture(rng, h, w)
     img_l = np.where(valid, img_l, noise).astype(np.uint8)
     return img_l, img_r, disp
+
+
+def _bilinear(img: np.ndarray, ys: np.ndarray, xs: np.ndarray
+              ) -> np.ndarray:
+    """Bilinear sample of a float image at (ys, xs), edge-clamped."""
+    h, w = img.shape
+    y0 = np.clip(np.floor(ys).astype(np.int64), 0, h - 1)
+    x0 = np.clip(np.floor(xs).astype(np.int64), 0, w - 1)
+    y1, x1 = np.minimum(y0 + 1, h - 1), np.minimum(x0 + 1, w - 1)
+    fy = np.clip(ys - y0, 0.0, 1.0)
+    fx = np.clip(xs - x0, 0.0, 1.0)
+    top = img[y0, x0] * (1 - fx) + img[y0, x1] * fx
+    bot = img[y1, x0] * (1 - fx) + img[y1, x1] * fx
+    return top * (1 - fy) + bot * fy
+
+
+def _smooth_texture(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """Band-limited float texture: multiscale noise blurred twice, so that
+    bilinear resampling at fractional offsets models a continuous image
+    (per-pixel noise aliases under subpixel shifts)."""
+    t = _multiscale_texture(rng, h, w).astype(np.float64)
+    return _box3(_box3(t).astype(np.int64)).astype(np.float64)
+
+
+def _to_uint8(a: np.ndarray) -> np.ndarray:
+    return np.clip(np.rint(a), 0, 255).astype(np.uint8)
+
+
+def fractional_shift_stereo(h: int, w: int, disp: float, seed: int = 0):
+    """Stereo pair with a constant non-integer disparity: left(x) =
+    texture(x), right(x) = texture(x + disp), sampled bilinearly, so
+    cost(L(x), R(x - d)) is least near d = disp.  Returns (img_l, img_r,
+    disp_gt (h, w) float64)."""
+    rng = np.random.default_rng(seed)
+    pad = int(np.ceil(abs(disp))) + 2
+    tex = _smooth_texture(rng, h, w + 2 * pad)
+    ys = np.arange(h, dtype=np.float64)[:, None].repeat(w, axis=1)
+    xs = np.arange(w, dtype=np.float64)[None, :].repeat(h, axis=0) + pad
+    img_l = _bilinear(tex, ys, xs)
+    img_r = _bilinear(tex, ys, xs + disp)
+    gt = np.full((h, w), disp, dtype=np.float64)
+    return _to_uint8(img_l), _to_uint8(img_r), gt
+
+
+def fractional_flow_pair(h: int, w: int, u: float, v: float, seed: int = 0):
+    """Flow pair with constant non-integer motion (u, v): img2 is img1
+    resampled bilinearly at p - (u, v), i.e. img2(p + (u, v)) = img1(p),
+    the convention of constant_flow_pair.  Returns (img1, img2, flow_gt
+    (h, w, 2) float64)."""
+    rng = np.random.default_rng(seed)
+    pad = int(np.ceil(max(abs(u), abs(v)))) + 2
+    tex = _smooth_texture(rng, h + 2 * pad, w + 2 * pad)
+    ys = np.arange(h, dtype=np.float64)[:, None].repeat(w, axis=1) + pad
+    xs = np.arange(w, dtype=np.float64)[None, :].repeat(h, axis=0) + pad
+    img1 = _bilinear(tex, ys, xs)
+    img2 = _bilinear(tex, ys - v, xs - u)
+    flow = np.zeros((h, w, 2), dtype=np.float64)
+    flow[..., 0] = u
+    flow[..., 1] = v
+    return _to_uint8(img1), _to_uint8(img2), flow
 
 
 def constant_flow_pair(h: int, w: int, u: int, v: int, seed: int = 0):

@@ -76,17 +76,26 @@ def _stereo(imgs_l: torch.Tensor, imgs_r: torch.Tensor, params: SGMParams,
         # first, so that S_R is freed before the left S exists
         d_right = right_disparity_reagg(cen_l, cen_r, imgs_r, params, plain)
     s = _s_volume(cen_l, cen_r, imgs_l, params, plain)
-    need_rwta = params.lr_check and d_right is None
-    d_int, s_m, s_0, s_p, valid = _extract(plain)(
-        s, params.s_invalid, params.lr_max_diff, params.subpixel,
-        with_rwta=need_rwta)
+    planes = _extract(plain)(s, params.s_invalid, params.lr_max_diff,
+                             params.subpixel,
+                             with_rwta=params.lr_check and d_right is None)
     del s
+    return disparity_tail(planes, params, d_right)
+
+
+def disparity_tail(planes, params: SGMParams,
+                   d_right: torch.Tensor | None = None) -> torch.Tensor:
+    """K3's planes (d_int, s_m, s_0, s_p, valid; valid None without its
+    right-view pass) -> (B, H, W) float32 disparity: subpixel, the LR check
+    (by K3's valid plane, or against ``d_right``, the re-aggregated right
+    view), median and fill."""
+    d_int, s_m, s_0, s_p, valid = planes
     disp = d_int.to(torch.float32)
     if params.subpixel:
         disp = ext.subpixel_from_neighborhood(d_int, s_m, s_0, s_p,
                                               params.max_disp)
     if params.lr_check:
-        if need_rwta:
+        if d_right is None:
             disp = torch.where(valid != 0, disp, INVALID)
         else:
             disp = ext.lr_check(disp, d_right, params.lr_max_diff,

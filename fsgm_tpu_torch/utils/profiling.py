@@ -30,12 +30,21 @@ JSON object:
   * ``peak_mib``: the card's peak allocation over one call, i.e. all B
     frames of a batch (None on the CPU).
 
-Counterpart, for the port, of fsgm_tpu/utils/profiling.py.
+The module also holds the port's counterparts of fsgm_tpu/utils/
+profiling.py's tools, which the bench (fsgm_tpu_torch/bench.py) uses:
+
+  * ``trace(log_dir)``: a torch.profiler context that writes a Chrome
+    trace (chrome://tracing, Perfetto) of what ran inside it;
+  * ``StageTimer``: wall time and modelled bytes per stage, and the
+    achieved GB/s against the card's HBM peak (``HBM_PEAK_GBS``);
+  * ``sgm_bytes_model``: the bytes the port's stereo kernels K1, K2 and
+    K3 must move (PERF.md's kernel table).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -58,16 +67,120 @@ PRESETS = {"stereo": CONFIGS / "kitti_stereo.json",
            "flow": CONFIGS / "kitti_flow.json",
            "tiled": CONFIGS / "tiled_4k.json"}
 FLOW_MAX_MAG = 8  # px of motion in the flow pipeline's synthetic pair
+# HBM peak (GB/s) by torch.cuda.get_device_name(): the H100 SXM's public
+# data-sheet rate.  A card not listed (and the CPU) has no peak.
+HBM_PEAK_GBS = {"NVIDIA H100 80GB HBM3": 3350.0}
+TRACE_FILE = "trace.json"
 
 
-def _sync(dev: torch.device) -> None:
+def hbm_peak_gbs(dev: torch.device) -> float | None:
+    """The HBM peak of dev's card from HBM_PEAK_GBS; None on the CPU or
+    for a card the table does not list."""
+    if dev.type != "cuda":
+        return None
+    return HBM_PEAK_GBS.get(torch.cuda.get_device_name(dev))
+
+
+@contextlib.contextmanager
+def trace(log_dir):
+    """torch.profiler over the block (the card's kernels too, where there
+    is a card); writes log_dir/trace.json, a Chrome trace."""
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(out / TRACE_FILE))
+
+
+class StageTimer:
+    """Wall time and modelled bytes per named stage; report() gives each
+    stage's achieved GB/s and its share of the card's HBM peak (None where
+    the peak is unknown)."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.peak_gbs = hbm_peak_gbs(dev)
+        self.stages: dict[str, dict] = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str, bytes_moved: int = 0):
+        """Time the block by the host clock between two synchronisations
+        of the device."""
+        sync(self.dev)
+        t0 = time.perf_counter()
+        yield
+        sync(self.dev)
+        self.record(name, time.perf_counter() - t0, bytes_moved)
+
+    def record(self, name: str, seconds: float, bytes_moved: int = 0):
+        """A time measured elsewhere (e.g. CUDA events over many calls)."""
+        rec = self.stages.setdefault(name, {"s": 0.0, "bytes": 0, "n": 0})
+        rec["s"] += seconds
+        rec["bytes"] += bytes_moved
+        rec["n"] += 1
+
+    def report(self) -> list[dict]:
+        out = []
+        for name, r in self.stages.items():
+            gbs = r["bytes"] / r["s"] / 1e9 if r["s"] > 0 else 0.0
+            pct = (None if self.peak_gbs is None
+                   else round(100 * gbs / self.peak_gbs, 1))
+            out.append({"stage": name, "wall_s": round(r["s"], 6),
+                        "calls": r["n"], "bytes": r["bytes"],
+                        "achieved_GBps": round(gbs, 1),
+                        "pct_of_HBM_peak": pct})
+        return out
+
+    def print_report(self, file=None):
+        for rec in self.report():
+            print(json.dumps(rec), file=file)
+
+
+def sgm_bytes_model(h: int, w: int, d: int, num_paths: int,
+                    s_itemsize: int = 2, batch: int = 1,
+                    launches=None) -> dict:
+    """Bytes the port's stereo kernels must move for ``batch`` frames of
+    H x W x D (PERF.md's kernel table, each input read once and each
+    output written once a launch):
+
+      * cost (K1): B * (2*HW*8 + HW*D), two int64 census planes in, the
+        uint8 cost volume out;
+      * aggregate (K2), summed over its launches: B * (HWD + n*HW*4 +
+        s_itemsize*HWD) for a launch of n directions, the cost volume and
+        n int32 P2' tables in, S out (2*HWD in int16).  ``launches`` lists
+        the directions of each launch (launch_plan's groups); default one
+        launch per direction, num_paths of them;
+      * extract (K3): B * (s_itemsize*HWD + 5*HW*4), S in, five int32
+        planes out.
+
+    An accumulating K2 launch also reads S; like the kernel table, the
+    model does not count that read, so it is a floor."""
+    hw, vol = h * w, h * w * d
+    if launches is None:
+        launches = [1] * num_paths
+    if sum(launches) != num_paths:
+        raise ValueError(f"launches {launches} do not cover {num_paths} "
+                         f"directions")
+    cost = batch * (2 * hw * 8 + vol)
+    aggregate = sum(batch * (vol + n * hw * 4 + s_itemsize * vol)
+                    for n in launches)
+    extract = batch * (s_itemsize * vol + 5 * hw * 4)
+    return {"cost": cost, "aggregate": aggregate, "extract": extract,
+            "total": cost + aggregate + extract}
+
+
+def sync(dev: torch.device) -> None:
+    """Wait for dev's queued work (nothing to wait for on the CPU)."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
 
 def wall_ms(fn, dev: torch.device, calls: int) -> float:
     """Wall time of one of ``calls`` back-to-back fn() calls."""
-    _sync(dev)
+    sync(dev)
     if dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -91,13 +204,13 @@ def profile_frames(frame, dev: torch.device, calls: int = 10,
     cuda = dev.type == "cuda"
     for _ in range(warmup):
         frame()
-    _sync(dev)
+    sync(dev)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if cuda else [])
     with profile(activities=activities) as prof:
         for _ in range(calls):
             frame()
-        _sync(dev)
+        sync(dev)
     kind = DeviceType.CUDA if cuda else DeviceType.CPU
     frames = calls * frames_per_call
     rows = []
@@ -117,7 +230,7 @@ def profile_frames(frame, dev: torch.device, calls: int = 10,
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
         frame()
-        _sync(dev)
+        sync(dev)
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     return {"device": str(dev), "calls": calls,
             "frames_per_call": frames_per_call, "rows": rows,
