@@ -2,14 +2,17 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
-Seven main paths and three entry points: stereo (configs/kitti_stereo.json,
-375x1242, D=128), fSGM flow (configs/kitti_flow.json, 375x1242, 4 levels,
-81 labels), batched stereo (stereo_sgm_batch, 16 frames of config 2 in one
-pass), tiled stereo (stereo_sgm_sharded at config 5, configs/tiled_4k.json:
-2 frames of 2160x3840, D=128, 2 frame shards x 4 row tiles, fast mode) and
-tiled flow (flow_fsgm_sharded, config 4 at 4K with 5 levels, 3 row tiles);
-the bench (fsgm_tpu_torch/bench.py: bench.py's six cells), `cli video` and
-`cli kitti` (phase 10). K2 runs as aggregate_paths plans it on the card
+Seven main paths, three entry points and two paths across ranks: stereo
+(configs/kitti_stereo.json, 375x1242, D=128), fSGM flow
+(configs/kitti_flow.json, 375x1242, 4 levels, 81 labels), batched stereo
+(stereo_sgm_batch, 16 frames of config 2 in one pass), tiled stereo
+(stereo_sgm_sharded at config 5, configs/tiled_4k.json: 2 frames of
+2160x3840, D=128, 2 frame shards x 4 row tiles, fast mode) and tiled flow
+(flow_fsgm_sharded, config 4 at 4K with 5 levels, 3 row tiles); the bench
+(fsgm_tpu_torch/bench.py: bench.py's six cells), `cli video` and `cli
+kitti` (phase 10); config 5 with its 2 frame shards on 2 torch.distributed
+ranks ("multiproc") and config 4 flow frames on 2 ranks ("multiproc_flow";
+phase 11). K2 runs as aggregate_paths plans it on the card
 (launch_plan, a choice a direction group): for one KITTI frame the vertical
 directions one launch each (sgm_sweep) and the horizontal pair in one
 family launch (sgm_sweep_family), every flow level in family launches, 16
@@ -130,7 +133,29 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
      chain (flow_fsgm_reference with each pair's prior); `kitti stereo`
      (config 2) and `kitti flow` (config 4) over a 2-frame 375x1242
      KITTI 2015 tree written here, each record equal to stereo_sgm /
-     flow_fsgm scored in this process.
+     flow_fsgm scored in this process;
+ 11. across ranks (fsgm_tpu_torch/parallel/multihost.py, ranks.py): 2
+     torch.distributed ranks (gloo, the frames gathered through the host)
+     as processes sharing this card, in one launch: (a) config 5 as the
+     preset gives it (fast, auto margin, 2 frame shards = 2 ranks x 1, 4
+     row tiles on each rank's card) on 2 frames of 2160x3840 equal to the
+     single-process stereo_sgm_sharded, and in exact mode to
+     stereo_sgm_batch, bit for bit (the multiproc path: launches summed
+     over the ranks, held to config 5's plan); (b) 16 config-2 frames, 8 a
+     rank, equal to stereo_sgm_batch; (c) 2 config-4 flow frames of
+     375x1242, one a rank, equal to flow_fsgm (validity and flow; the
+     multiproc_flow path, held to twice phase 5's launches); each rank
+     reports its launches, first call's wall, peak memory and loaded
+     modules (none of jax, fsgm_tpu, golden), printed beside the
+     single-process call's ms and peak; (d) `python -m fsgm_tpu_torch.cli
+     scale-test --procs 2` for stereo and flow (exit 0, one JSON line,
+     printed; ranks sharing one card give no weak-scaling figure); (e)
+     tests/distributed/test_multihost.py's case (32x48, D=16, 4 row tiles
+     a rank, exact) on 2 CPU ranks equal to stereo_sgm; (f)
+     stereo_sgm_dsharded at config 2 on one KITTI frame over 4 label
+     slices on this card and at 37x53, 16 paths, adaptive P2 over 2, each
+     equal to stereo_sgm, timed; (g) dryrun_multichip(n) for n = 1, 2, 3,
+     4, 8 on this card.
 
 Each kernel's bound_ms is the larger of two times for this run's shapes:
 the bytes it must move (each input read once, each output written once;
@@ -192,7 +217,8 @@ OPS_PER_S = 67e12
 # launches_by_path all.  K2 is sgm_sweep and sgm_sweep_family on one KITTI
 # frame (aggregate_paths' launch_plan on one H100: the vertical group per
 # direction, the horizontal pair in one family launch), sgm_sweep_family on
-# flow, sgm_sweep on 16 frames and on the tiled paths.  wta_right and
+# flow, sgm_sweep on 16 frames and on the tiled and multiproc paths.  The
+# multiproc paths' counts are summed over phase 11's ranks.  wta_right and
 # min16_probe are on no path: only phase 9 runs them.
 SOURCES = {
     "census_cost": ("cost", "fsgm_tpu/ops/pallas/cost_tr.py:106",
@@ -200,29 +226,31 @@ SOURCES = {
                      "fsgm_tpu/ops/pallas/cost_tr.py:158",
                      "fsgm_tpu/ops/pallas/cost_pallas.py:56"],
                     ("stereo", "stereo_batch", "stereo_tiled", "bench",
-                     "kitti")),
+                     "kitti", "multiproc")),
     "sgm_sweep": ("sgm_sweep", "fsgm_tpu/ops/pallas/aggregate_tr.py:289",
                   ["fsgm_tpu/ops/pallas/aggregate_pallas.py:297",
                    "fsgm_tpu/ops/pallas/aggregate_pallas.py:420"],
                   ("stereo_batch", "stereo", "stereo_tiled", "flow_tiled",
-                   "bench", "kitti")),
+                   "bench", "kitti", "multiproc")),
     "sgm_sweep_family": ("sgm_sweep",
                          "fsgm_tpu/ops/pallas/aggregate_tr.py:451",
                          ["tools/trexp.py:102"],
-                         ("stereo", "flow", "bench", "video", "kitti")),
+                         ("stereo", "flow", "bench", "video", "kitti",
+                          "multiproc_flow")),
     "extract_stereo": ("extract", "fsgm_tpu/ops/pallas/extract_tr.py:227",
                        ["fsgm_tpu/ops/pallas/extract_pallas.py:82"],
                        ("stereo", "stereo_batch", "stereo_tiled", "bench",
-                        "kitti")),
+                        "kitti", "multiproc")),
     "wta_right": ("extract", "fsgm_tpu/ops/pallas/extract_tr.py:299",
                   ["tools/strideroll_probe.py:34",
                    "tools/strideroll_probe.py:59",
                    "tests/unit/test_property.py:142"], ()),
     "extract_flow": ("extract_flow", "fsgm_tpu/ops/pallas/extract_tr.py:387",
-                     None, ("flow", "flow_tiled", "bench", "video", "kitti")),
+                     None, ("flow", "flow_tiled", "bench", "video", "kitti",
+                            "multiproc_flow")),
     "label_minor_from_major": (
         "transpose", "fsgm_tpu/ops/pallas/transpose_pallas.py:83", None,
-        ("flow", "flow_tiled", "bench", "video", "kitti")),
+        ("flow", "flow_tiled", "bench", "video", "kitti", "multiproc_flow")),
     "min16_probe": ("min16_probe", "tools/tr_int16_probe.py:41", None, ()),
 }
 PROBE_SHAPE = (376, 1280, 128)  # tools/strideroll_probe.py's H, W, L
@@ -234,6 +262,9 @@ VIDEO_FRAMES = 4        # constant_flow_sequence frames through `cli video`
 KITTI_FRAMES = 2        # frames of each task in the written devkit tree
 ENTRY_MOTION = (3, -2)  # (u, v) of the video and kitti flow frames
 SGM_KERNELS = ("sgm_sweep", "sgm_sweep_family")  # K2's two launch forms
+RANKS = 2               # torch.distributed ranks of phase 11, on one card
+RANK_TIMEOUT_S = 300.0  # each launch of phase 11's ranks
+DSHARD_TD = 4           # label slices of stereo_sgm_dsharded at KITTI
 
 
 def ptxas_record() -> dict:
@@ -2002,6 +2033,212 @@ def check_kitti(dev, params) -> dict:
     return total
 
 
+def rank_run(task: str, params, dist, a, b, tmp: Path, tag: str,
+             devices_per_proc: int = 1) -> dict:
+    """One run of a ranks job (fsgm_tpu_torch/parallel/ranks.py): the whole
+    (F, H, W) batch written for the ranks to read, rank 0's result to
+    tmp/<tag>_out.npz."""
+    from fsgm_tpu_torch.parallel.ranks import run_spec
+    return run_spec(task, params, dist, a, b, tmp / f"{tag}_in.npz",
+                    tmp / f"{tag}_out.npz", devices_per_proc=devices_per_proc)
+
+
+def on_ranks(runs: list, device: str, tags: list) -> list:
+    """The runs on RANKS ranks of a gloo group; every rank must load no
+    module of jax, fsgm_tpu or golden and return the same result; each
+    rank's wall, peak and launches printed.  The reports, by rank."""
+    from fsgm_tpu_torch.parallel import ranks
+    job = {"device": device, "timeout_s": RANK_TIMEOUT_S, "runs": runs}
+    t0 = time.perf_counter()
+    reports = ranks.launch(job, RANKS)
+    print(f"{RANKS} ranks ({device}): {time.perf_counter() - t0:.2f} s from "
+          f"start to exit")
+    for rep in reports:
+        require(rep["foreign"] == [], f"rank {rep['rank']} loaded "
+                f"{rep['foreign']}")
+    for i, tag in enumerate(tags):
+        require(len({rep["runs"][i]["digest"] for rep in reports}) == 1,
+                f"{tag}: the ranks returned different results")
+        for rep in reports:
+            r = rep["runs"][i]
+            peak = "" if r["peak_mib"] is None else \
+                f", peak {r['peak_mib']:.1f} MiB"
+            print(f"{tag}, rank {rep['rank']}/{rep['world']} on "
+                  f"{rep['device']}: first call {r['wall_s'] * 1e3:.2f} ms"
+                  f"{peak}, launches {r['launches']}")
+    return reports
+
+
+def rank_launches(reports: list, i: int) -> dict:
+    """Run i's kernel launches, summed over the ranks."""
+    total: dict = {}
+    for rep in reports:
+        total = add_counts(total, rep["runs"][i]["launches"])
+    return total
+
+
+def check_multiproc(dev, params, fparams, flow_launches: dict,
+                    card_line: str) -> tuple[dict, dict]:
+    """11(a)-(c): config 5 (fast as the preset gives it, and exact), 16
+    frames of config 2 and 2 frames of config 4 flow, each across RANKS
+    ranks sharing this card (one launch of the ranks for all four runs),
+    against the single-process calls here; the multiproc paths' launches
+    (summed over the ranks)."""
+    from fsgm_tpu_torch import (DistParams, flow_fsgm, load_preset,
+                                stereo_sgm_batch, stereo_sgm_sharded)
+    preset = load_preset(CONFIG5)
+    p5, d5 = preset["sgm"], preset["dist"]
+    require(d5.frame_shards == RANKS, f"config 5 has {d5.frame_shards} "
+            f"frame shards, not {RANKS}")
+    exact5 = dataclasses.replace(d5, tile_mode="exact")
+    h, w, d = UHD
+    ul, ur = frame_stack(h, w, d, RANKS, SEED, dev)
+    kl, kr = frame_stack(*KITTI, BATCH, SEED, dev)
+    f1, f2 = (torch.stack(x) for x in zip(*[
+        flow_pair(*FLOW_HW, SEED + k, dev)[:2] for k in range(RANKS)]))
+    frames = DistParams(frame_shards=RANKS)
+    tags = ["config 5 fast", "config 5 exact", f"config 2 x {BATCH}",
+            "config 4 flow"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        runs = [rank_run("stereo", p5, d5, ul, ur, tmp, "c5f",
+                         d5.tiles_y),
+                rank_run("stereo", p5, exact5, ul, ur, tmp, "c5e",
+                         d5.tiles_y),
+                rank_run("stereo", params, frames, kl, kr, tmp, "c2"),
+                rank_run("flow", fparams, frames, f1, f2, tmp, "c4")]
+        reports = on_ranks(runs, "cuda", tags)
+        got = [np.load(tmp / f"{t}_out.npz") for t in ("c5f", "c5e", "c2",
+                                                       "c4")]
+        got = [{k: z[k] for k in z.files} for z in got]
+
+    def single(fn) -> tuple:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, (time.perf_counter() - t0) * 1e3,
+                torch.cuda.max_memory_allocated() / 2 ** 20)
+
+    want, ms, peak = single(lambda: stereo_sgm_sharded(ul, ur, p5, d5))
+    print(f"config 5 fast in one process (stereo_sgm_sharded, 8 tiles on "
+          f"this card): {ms:.2f} ms, peak {peak:.1f} MiB ({card_line})")
+    require(np.array_equal(got[0]["out"], want.cpu().numpy()),
+            "config 5 fast across ranks != single-process "
+            "stereo_sgm_sharded")
+    want, ms, peak = single(lambda: stereo_sgm_batch(ul, ur, p5))
+    print(f"config 5 stereo_sgm_batch in one process: {ms:.2f} ms, peak "
+          f"{peak:.1f} MiB ({card_line})")
+    require(np.array_equal(got[1]["out"], want.cpu().numpy()),
+            "config 5 exact across ranks != stereo_sgm_batch")
+    want, ms, peak = single(lambda: stereo_sgm_batch(kl, kr, params))
+    print(f"config 2 stereo_sgm_batch ({BATCH} frames) in one process: "
+          f"{ms:.2f} ms, peak {peak:.1f} MiB ({card_line})")
+    require(np.array_equal(got[2]["out"], want.cpu().numpy()),
+            f"config 2 x {BATCH} across ranks != stereo_sgm_batch")
+    for k in range(RANKS):
+        fl, va = flow_fsgm(f1[k], f2[k], fparams)
+        require(np.array_equal(got[3]["out"][k], fl.cpu().numpy())
+                and np.array_equal(got[3]["valid"][k], va.cpu().numpy()),
+                f"config 4 flow across ranks, frame {k} != flow_fsgm")
+    print(f"across {RANKS} ranks: config 5 fast == stereo_sgm_sharded, "
+          f"exact == stereo_sgm_batch, config 2 x {BATCH} == "
+          f"stereo_sgm_batch, config 4 flow == flow_fsgm (validity and "
+          f"flow), bit for bit")
+    stereo = rank_launches(reports, 0)
+    tiles = d5.frame_shards * d5.tiles_y
+    n_v = sum(1 for r in p5.dirs if r[0] != 0)
+    want_s = {"census_cost": tiles, "extract_stereo": tiles,
+              "sgm_sweep": tiles * (len(p5.dirs) + n_v) - RANKS * n_v}
+    require(stereo == want_s, f"multiproc launches {stereo} != {want_s}")
+    flow = rank_launches(reports, 3)
+    want_f = {k: RANKS * n for k, n in flow_launches.items()}
+    require(flow == want_f, f"multiproc flow launches {flow} != {want_f}")
+    print(f"launches summed over the ranks: config 5 fast {stereo}, config "
+          f"2 x {BATCH} {rank_launches(reports, 2)}, config 4 flow {flow}")
+    return stereo, flow
+
+
+def check_scale_test(card_line: str) -> None:
+    """11(d): `cli scale-test --procs RANKS` for both tasks on this card:
+    exit 0 and one JSON line each."""
+    for task in ("stereo", "flow"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fsgm_tpu_torch.cli", "scale-test",
+             "--task", task, "--procs", str(RANKS)], cwd=REPO,
+            capture_output=True, text=True, timeout=2 * RANK_TIMEOUT_S)
+        require(proc.returncode == 0, f"scale-test {task} exited "
+                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        require(len(lines) == 1, f"scale-test {task} printed {lines}")
+        rep = json.loads(lines[0])
+        require({"hosts", "frames_per_s", "weak_scaling_efficiency",
+                 "frames_per_s_1host", "device"} <= set(rep),
+                f"scale-test {task}: {rep}")
+        print(f"scale-test {task} ({time.perf_counter() - t0:.2f} s): "
+              f"{lines[0]} ({card_line}; {RANKS} ranks share one card: no "
+              f"weak-scaling figure)")
+
+
+def check_cpu_ranks() -> None:
+    """11(e): tests/distributed/test_multihost.py's case on the CPU (2
+    frames of 32x48, D=16, 4 row tiles a rank, exact) across RANKS ranks,
+    each frame equal to the port's stereo_sgm."""
+    from fsgm_tpu_torch import DistParams, SGMParams, stereo_sgm
+    p = SGMParams(max_disp=16, p1=7, p2=60)
+    dp = DistParams(tiles_y=4, frame_shards=RANKS, tile_mode="exact")
+    cpu = torch.device("cpu")
+    il, ir = frame_stack(32, 48, 16, RANKS, 0, cpu)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        on_ranks([rank_run("stereo", p, dp, il, ir, tmp, "cpu", 4)], "cpu",
+                 ["32x48 on the CPU"])
+        got = np.load(tmp / "cpu_out.npz")["out"]
+    for k in range(RANKS):
+        require(np.array_equal(got[k], stereo_sgm(il[k], ir[k], p).numpy()),
+                f"CPU ranks, frame {k} != stereo_sgm")
+    print(f"CPU: {RANKS} ranks x 4 row tiles (32x48, D=16, exact) == "
+          f"stereo_sgm on each frame")
+
+
+def check_dsharded(params, dev, card_line: str) -> dict:
+    """11(f): stereo_sgm_dsharded at config 2 on one KITTI frame over
+    DSHARD_TD label slices on this card, and at 37x53 with 16 paths,
+    adaptive P2 over 2, each equal to stereo_sgm; the times."""
+    from fsgm_tpu_torch import SGMParams, stereo_sgm
+    from fsgm_tpu_torch.parallel import stereo_sgm_dsharded
+    out = {}
+    small = SGMParams(max_disp=SMALL[2], p1=7, p2=60, num_paths=16,
+                      adaptive_p2=True)
+    for shape, p, td, tag in ((KITTI, params, DSHARD_TD, "kitti"),
+                              (SMALL, small, 2, "37x53 16-path adaptive")):
+        tl, tr, _ = pair(*shape, SEED, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = stereo_sgm_dsharded(tl, tr, p, [dev] * td)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        require(torch.equal(got, stereo_sgm(tl, tr, p)),
+                f"dsharded {tag} td={td} != stereo_sgm")
+        out[tag] = dict(td=td, ms=ms)
+        print(f"stereo_sgm_dsharded {tag} {shape}, td={td} == stereo_sgm; "
+              f"{ms:.1f} ms (plain torch, one step a row; {card_line})")
+    return out
+
+
+def check_dryrun(card_line: str) -> None:
+    """11(g): dryrun_multichip(n) for n = 1, 2, 3, 4, 8 on this card."""
+    from fsgm_tpu_torch.parallel.dryrun import dryrun_multichip
+    for n in (1, 2, 3, 4, 8):
+        t0 = time.perf_counter()
+        dryrun_multichip(n)
+        print(f"dryrun_multichip({n}) on n x cuda:0: every exact mode == "
+              f"its untiled counterpart ({time.perf_counter() - t0:.2f} s; "
+              f"{card_line})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2345,6 +2582,18 @@ def main() -> int:
     launches["video"] = check_video(dev)
     launches["kitti"] = check_kitti(dev, params)
     print(f"phase 10: {time.perf_counter() - t10:.2f} s")
+
+    # 11. across ranks: configs 5, 2 and 4 on RANKS ranks sharing this
+    #     card, scale-test, the CPU case, disparity sharding, the dry run
+    t11 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches["multiproc"], launches["multiproc_flow"] = check_multiproc(
+        dev, params, fparams, launches["flow"], card_line)
+    check_scale_test(card_line)
+    check_cpu_ranks()
+    check_dsharded(params, dev, card_line)
+    check_dryrun(card_line)
+    print(f"phase 11: {time.perf_counter() - t11:.2f} s")
     times["sgm_sweep_family"] = {k: vtimes["family"][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     times["wta_right"] = {k: vtimes["wta_right"][k] for k in (

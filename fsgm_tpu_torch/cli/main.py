@@ -15,9 +15,11 @@
     python -m fsgm_tpu_torch.cli kitti stereo|flow ROOT --year 2015 \\
         [--preset configs/kitti_stereo.json] [--output-dir pred]
     python -m fsgm_tpu_torch.cli bench --config kitti [--stages] [--guard]
+    python -m fsgm_tpu_torch.cli scale-test --task stereo|flow --procs 2
 
 Counterpart of fsgm_tpu/cli/main.py ``stereo``, ``flow``, ``video``,
-``batch``, ``serve``, ``demo``, ``eval``, ``kitti`` and ``bench``; each
+``batch``, ``serve``, ``demo``, ``eval``, ``kitti``, ``bench`` and
+``scale-test`` (without ``--model``, the TPU interconnect projection); each
 prints the same JSON records (``bench``: fsgm_tpu_torch/bench.py, in this
 process).  With
 ``--preset``, the preset's parameters are taken as they are, as in the
@@ -32,6 +34,7 @@ import dataclasses
 import json
 import os
 import sys
+import tempfile
 import time
 from collections import deque
 from pathlib import Path
@@ -541,6 +544,68 @@ def cmd_kitti(args) -> int:
     return 0
 
 
+SCALE_TIMEOUT_S = 600.0  # each launch of the scale-test ranks
+
+
+def scale_job(task: str, ranks: int, devices_per_proc: int, reps: int,
+              device: str, tmp: Path) -> dict:
+    """The scale-test job on ``ranks`` ranks (parallel/ranks.py): one frame
+    a rank over devices_per_proc row tiles, at fsgm_tpu/cli/main.py's
+    scale-test shapes: stereo 96x128, D=32, fast with margin 8; flow
+    96x128, radius 3, 3 levels, exact."""
+    from fsgm_tpu_torch.params import DistParams
+    from fsgm_tpu_torch.parallel.ranks import run_spec
+    if task == "stereo":
+        params = SGMParams(max_disp=32, p1=7, p2=60)
+        dist = DistParams(tiles_y=devices_per_proc, frame_shards=ranks,
+                          tile_mode="fast", margin=8)
+        pairs = [io.random_dot_stereo(96, 128, 32, seed=s)
+                 for s in range(ranks)]
+    else:
+        params = FlowParams(search_radius=3, levels=3, p1=7, p2=60)
+        dist = DistParams(tiles_y=devices_per_proc, frame_shards=ranks,
+                          tile_mode="exact")
+        pairs = [io.constant_flow_pair(96, 128, 2, -1, seed=s)
+                 for s in range(ranks)]
+    a, b = (np.stack(x) for x in zip(*[q[:2] for q in pairs]))
+    return {"device": device, "timeout_s": SCALE_TIMEOUT_S, "runs": [
+        run_spec(task, params, dist, a, b, tmp / f"{task}_{ranks}.npz",
+                 reps=reps, devices_per_proc=devices_per_proc)]}
+
+
+def cmd_scale_test(args) -> int:
+    """Weak scaling over local ranks: the tiled pipeline on 1 and then
+    --procs ranks of a gloo group, one frame a rank over --devices-per-proc
+    row tiles; frames/s of --reps timed calls after one, and the
+    efficiency against the one-rank rate.  Ranks that share one card give
+    no weak-scaling figure: they divide the card between them."""
+    from fsgm_tpu_torch.parallel import ranks
+    from fsgm_tpu_torch.parallel.multihost import weak_scaling_report
+    dev = _device(args.device)
+    if args.procs < 1 or args.reps < 1:
+        raise SystemExit("--procs and --reps must be at least 1")
+    if dev.type == "cuda":
+        from fsgm_tpu_torch.ops.kernels import _build
+        _build.build_all()  # once, before any rank starts
+    rates = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for n in sorted({1, args.procs}):
+            job = scale_job(args.task, n, args.devices_per_proc, args.reps,
+                            args.device, Path(tmp))
+            try:
+                reports = ranks.launch(job, n, args.port)
+            except RuntimeError as e:
+                print(f"scale-test on {n} ranks: {e}", file=sys.stderr)
+                return 1
+            rates[n] = reports[0]["runs"][0]["frames_per_s"]
+    rep = weak_scaling_report(rates[args.procs], args.procs, rates[1])
+    rep["frames_per_s_1host"] = rates[1]
+    rep["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                     else "cpu")
+    print(json.dumps(rep))
+    return 0
+
+
 def cmd_bench(args) -> int:
     from fsgm_tpu_torch import bench
     return bench.run_args(args)
@@ -643,6 +708,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write predictions here (devkit naming)")
     _add_stereo_args(kp)
     kp.set_defaults(fn=cmd_kitti)
+
+    st = sub.add_parser("scale-test",
+                        help="weak-scaling harness over N local ranks")
+    st.add_argument("--task", default="stereo", choices=["stereo", "flow"])
+    st.add_argument("--procs", type=int, default=2)
+    st.add_argument("--devices-per-proc", dest="devices_per_proc", type=int,
+                    default=4, help="row tiles a rank (on its card)")
+    st.add_argument("--reps", type=int, default=3)
+    st.add_argument("--port", type=int, default=0,
+                    help="rendezvous port on 127.0.0.1 (0 = a free one)")
+    st.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    st.set_defaults(fn=cmd_scale_test)
 
     bnp = sub.add_parser("bench", help="throughput harness "
                          "(fsgm_tpu_torch/bench.py)")

@@ -1,5 +1,5 @@
 """Tiled stereo SGM over a grid of devices: frame shards x row tiles x
-column tiles, in one process.
+column tiles, in one process or with the frame shards over ranks.
 
 Counterpart of fsgm_tpu/parallel/tiled.py (``stereo_sgm_sharded``).  The
 JAX package runs one SPMD program per device of a ("frame", "ty", "tx")
@@ -7,6 +7,8 @@ mesh and exchanges with ppermute / all_gather.  Here one process holds the
 tiles in lists, each tile on its own ``torch.device``, and an exchange is
 ``tensor.to(device)``, so the same schedule runs on the CPU, on one card
 and on several cards of one host (a caller lists them in ``devices``).
+Given a RankMesh (parallel/multihost.py) instead, each torch.distributed
+rank runs its own frame shards so and the ranks gather the frames.
 
   * frame shards: F / frame_shards frames per shard, which go through K1,
     K2 and K3 as one batch (B);
@@ -52,6 +54,7 @@ from fsgm_tpu_torch.ops.census import census_transform
 from fsgm_tpu_torch.ops.kernels import aggregate as agg
 from fsgm_tpu_torch.ops.kernels import cost as kcost
 from fsgm_tpu_torch.ops.kernels import extract as kext
+from fsgm_tpu_torch.parallel.multihost import RankMesh, run_rank_shards
 
 
 # --------------------------------------------------------------------------
@@ -397,6 +400,10 @@ def _sharded(imgs_l: torch.Tensor, imgs_r: torch.Tensor, params: SGMParams,
              dist: DistParams, devices, counters: dict | None,
              plain: bool) -> torch.Tensor:
     _check(imgs_l, imgs_r, params, dist)
+    if isinstance(devices, RankMesh):
+        return run_rank_shards(
+            devices, dist, lambda a, b, d, devs: _sharded(
+                a, b, params, d, devs, counters, plain), imgs_l, imgs_r)
     f, h, w = imgs_l.shape
     fs, ty, tx = dist.frame_shards, dist.tiles_y, dist.tiles_x
     grid = device_grid(devices, (fs, ty, tx), imgs_l.device)
@@ -443,8 +450,12 @@ def stereo_sgm_sharded(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
     forgetting length: a path into a window starts fresh at the window's
     edge, margin columns beyond the tile.
     ``devices``: a frame_shards x tiles_y x tiles_x list in (frame, ty, tx)
-    order (default: every tile on the images' device); ``counters``: see the
-    module docstring.  The result lies on the images' device."""
+    order (default: every tile on the images' device), or this rank's
+    RankMesh (parallel/multihost.py: frame_shards must equal its frame
+    axis; the rank runs its own shards on its tiles_y x tiles_x local
+    devices and gathers every rank's frames); ``counters``: see the module
+    docstring (a rank's own tiles only).  The result lies on the images'
+    device."""
     return _sharded(imgs_l, imgs_r, params, dist, devices, counters,
                     plain=False)
 

@@ -1,5 +1,6 @@
 """Tiled fSGM flow over a grid of devices: frame shards x row tiles, in one
-process.
+process or with the frame shards over ranks (a RankMesh, as
+parallel/tiled.py).
 
 Counterpart of fsgm_tpu/parallel/tiled_flow.py (``flow_fsgm_sharded``),
 on the tile lists of parallel/tiled.py.  Per pyramid level, coarsest
@@ -18,10 +19,12 @@ that holds several tiles builds them once.  The pyramid runs per tile, so
 H must divide by tiles_y * 2^(levels-1).  The forward-backward check
 gathers the backward field and checks each tile's rows in global rows;
 every ``fb_backward`` mode runs as in models/flow.py.  The frames of a
-shard run one after another (the flow kernels K4 and K5 take one frame).
+shard run one after another (the flow kernels K4 and K5 take one frame);
+a chain of one row tile is flow_fsgm itself.
 
 One fault of the reference is refused instead of copied: it always checks
-on the full grid, also under ``fb_grid="half"``; the port raises.
+on the full grid, also under ``fb_grid="half"``; the port raises where
+there are several row tiles.
 """
 
 from __future__ import annotations
@@ -32,12 +35,14 @@ import torch
 
 from fsgm_tpu_torch.params import DIRS_8, DistParams, FlowParams
 from fsgm_tpu_torch.models.flow import (_level_extract, build_pyramid,
-                                        fb_check, upsample_flow_2x)
+                                        fb_check, flow_fsgm,
+                                        upsample_flow_2x)
 from fsgm_tpu_torch.ops import extract as ext
 from fsgm_tpu_torch.ops.census import census_transform
 from fsgm_tpu_torch.ops.cost import cost_volume_flow_major
 from fsgm_tpu_torch.ops.kernels import aggregate as agg
 from fsgm_tpu_torch.ops.kernels import transpose
+from fsgm_tpu_torch.parallel.multihost import RankMesh, run_rank_shards
 from fsgm_tpu_torch.parallel.tiled import (aggregate_tiled, device_grid,
                                            exchange_row_halo, gather_rows,
                                            per_device, tile_margin)
@@ -138,11 +143,14 @@ def flow_fsgm_sharded(imgs1: torch.Tensor, imgs2: torch.Tensor,
     bool), each frame bit-identical to flow_fsgm in "exact" mode.
 
     F is split into dist.frame_shards shards and rows into dist.tiles_y
-    tiles: F must divide by frame_shards and H by tiles_y * 2^(levels-1);
-    tiles_x must be 1.  ``devices``: a frame_shards x tiles_y list in
-    (frame, ty) order (default: every tile on the images' device);
-    ``counters``: as parallel/tiled.py::stereo_sgm_sharded.  The result
-    lies on the images' device."""
+    tiles: F must divide by frame_shards and, with several row tiles, H by
+    tiles_y * 2^(levels-1); tiles_x must be 1.  With one row tile a frame
+    is flow_fsgm on the tile's device (any H, every fb_grid): no row
+    crosses a tile, and ``counters`` is left as it was given.
+    ``devices``: a frame_shards x tiles_y list in (frame, ty) order
+    (default: every tile on the images' device), or this rank's RankMesh
+    (as parallel/tiled.py::stereo_sgm_sharded); ``counters``: as
+    stereo_sgm_sharded.  The result lies on the images' device."""
     if imgs1.shape != imgs2.shape or imgs1.dim() != 3:
         raise ValueError(f"image shapes {tuple(imgs1.shape)} and "
                          f"{tuple(imgs2.shape)} must be equal (F, H, W)")
@@ -150,13 +158,26 @@ def flow_fsgm_sharded(imgs1: torch.Tensor, imgs2: torch.Tensor,
         raise ValueError("images lie on different devices")
     f, h, w = imgs1.shape
     fs, ty = dist.frame_shards, dist.tiles_y
-    if f % fs or h % (ty << (params.levels - 1)) or dist.tiles_x != 1:
+    if f % fs or (ty > 1 and h % (ty << (params.levels - 1))) \
+            or dist.tiles_x != 1:
         raise ValueError(f"(F, H) = {(f, h)} must divide by (frame_shards, "
                          f"tiles_y * 2^(levels-1)) = "
                          f"{(fs, ty << (params.levels - 1))}, and tiles_x "
                          f"must be 1 (got {dist.tiles_x})")
-    if params.fb_check and params.fb_grid == "half":
-        raise ValueError("fb_grid='half' is not supported under tiling")
+    if ty > 1 and params.fb_check and params.fb_grid == "half":
+        raise ValueError("fb_grid='half' is not supported under row tiling")
+    if isinstance(devices, RankMesh):
+        return run_rank_shards(
+            devices, dist, lambda a, b, d, devs: _flow_frames(
+                a, b, params, d, devs, counters), imgs1, imgs2)
+    return _flow_frames(imgs1, imgs2, params, dist, devices, counters)
+
+
+def _flow_frames(imgs1: torch.Tensor, imgs2: torch.Tensor,
+                 params: FlowParams, dist: DistParams, devices,
+                 counters: dict | None):
+    f, h, w = imgs1.shape
+    fs, ty = dist.frame_shards, dist.tiles_y
     grid = device_grid(devices, (fs, ty), imgs1.device)
     fl, ht = f // fs, h // ty
     flows = torch.empty((f, h, w, 2), dtype=torch.float32,
@@ -166,7 +187,10 @@ def flow_fsgm_sharded(imgs1: torch.Tensor, imgs2: torch.Tensor,
         devs = grid[n // fl]
         t1, t2 = ([img[n, y * ht:(y + 1) * ht].to(devs[y]).contiguous()
                    for y in range(ty)] for img in (imgs1, imgs2))
-        flow, valid = _flow_chain(t1, t2, params, dist, counters)
+        if ty > 1:
+            flow, valid = _flow_chain(t1, t2, params, dist, counters)
+        else:
+            flow, valid = ([x] for x in flow_fsgm(t1[0], t2[0], params))
         for y in range(ty):
             flows[n, y * ht:(y + 1) * ht] = flow[y].to(flows.device)
             valids[n, y * ht:(y + 1) * ht] = valid[y].to(valids.device)

@@ -47,6 +47,13 @@ import sys
 import tempfile
 from pathlib import Path
 
+if __name__ == "__main__":
+    # Run as a script, this file's directory leads sys.path, and its
+    # logging.py would stand in for the standard library's when torch
+    # imports logging: take the directory out before anything imports torch.
+    _here = Path(__file__).resolve().parent
+    sys.path[:] = [p for p in sys.path if Path(p or ".").resolve() != _here]
+
 DIRS_8 = [(0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1),
           (-1, -1)]
 KITTI = (375, 1242, 128)

@@ -41,6 +41,13 @@ import sys
 import time
 from pathlib import Path
 
+if __name__ == "__main__":
+    # Run as a script, this file's directory leads sys.path, and its
+    # logging.py would stand in for the standard library's when torch
+    # imports logging: take the directory out before anything imports torch.
+    _here = Path(__file__).resolve().parent
+    sys.path[:] = [p for p in sys.path if Path(p or ".").resolve() != _here]
+
 LEVELS = ((375, 1242), (187, 621), (93, 310), (46, 155))  # config 4
 UHD_TILE = (720, 3840)  # the 4K flow leg's level-0 row tile (of 3)
 NL, EXT, ND = 81, 9, 96

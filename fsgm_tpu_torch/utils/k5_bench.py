@@ -39,6 +39,13 @@ import sys
 import time
 from pathlib import Path
 
+if __name__ == "__main__":
+    # Run as a script, this file's directory leads sys.path, and its
+    # logging.py would stand in for the standard library's when torch
+    # imports logging: take the directory out before anything imports torch.
+    _here = Path(__file__).resolve().parent
+    sys.path[:] = [p for p in sys.path if Path(p or ".").resolve() != _here]
+
 import numpy as np
 
 # (name, H, L, W): config 4's levels, the 4K flow tile, the small check
