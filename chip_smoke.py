@@ -2,9 +2,12 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
-Seven main paths, three entry points and two paths across ranks: stereo
+Eight main paths, three entry points and two paths across ranks: stereo
 (configs/kitti_stereo.json, 375x1242, D=128), fSGM flow
-(configs/kitti_flow.json, 375x1242, 4 levels, 81 labels), batched stereo
+(configs/kitti_flow.json, 375x1242, 4 levels, 81 labels; flow_fsgm, each
+level's forward and backward passes as one launch set), batched flow
+(flow_fsgm_batch, 8 config-4 frames in one pass: "flow_batch", phase 12),
+batched stereo
 (stereo_sgm_batch, 16 frames of config 2 in one pass), tiled stereo
 (stereo_sgm_sharded at config 5, configs/tiled_4k.json: 2 frames of
 2160x3840, D=128, 2 frame shards x 4 row tiles, fast mode) and tiled flow
@@ -15,8 +18,9 @@ ranks ("multiproc") and config 4 flow frames on 2 ranks ("multiproc_flow";
 phase 11). K2 runs as aggregate_paths plans it on the card
 (launch_plan, a choice a direction group): for one KITTI frame the vertical
 directions one launch each (sgm_sweep) and the horizontal pair in one
-family launch (sgm_sweep_family), every flow level in family launches, 16
-frames and the tiled paths one launch per direction.
+family launch (sgm_sweep_family), on flow as the plan gives it for each
+level-pass's slices, 16 frames and the tiled paths one launch per
+direction.
 Phases, each of which raises on failure (non-zero exit, no ok line):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -43,7 +47,9 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
   5. flow_fsgm end to end against flow_fsgm_reference at config 4:
      identical validity planes, valid flow within 1e-3, Fl-all / EPE /
      valid share against the ground truth, and each kernel's launch count
-     in that call; flow_fsgm_batch on 2 frames equals per-frame flow_fsgm;
+     in that call held to the lockstep plan (flow_launches: one K5, one K2
+     plan and one K4 a level-pass, over 2 slices where the backward pass
+     runs); flow_fsgm_batch on 2 frames equals per-frame flow_fsgm;
   6. batched stereo: K1 (left and right reference), K2 (each direction and
      the summed S) and K3 (with and without the right-view pass) over B
      frames against their plain versions, exact, at config 1
@@ -155,7 +161,27 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
      stereo_sgm_dsharded at config 2 on one KITTI frame over 4 label
      slices on this card and at 37x53, 16 paths, adaptive P2 over 2, each
      equal to stereo_sgm, timed; (g) dryrun_multichip(n) for n = 1, 2, 3,
-     4, 8 on this card.
+     4, 8 on this card;
+ 12. batched flow: (a) K5 and K4 with a frame axis against their plain
+     versions, exact, one launch each: on 8 config-4 level-0 frames
+     (flow_pair seeds 0-7, their own priors, K2 over the 8 frames between),
+     on 3 frames of random 4K level-0 label-major cost (3 x 2160 x 96 x
+     3840 bytes, past 2^31) and on 2 frames of random 4K level-0 int16 S,
+     and the 8 frames' K5 and K4 timed (event, device, plain, library,
+     bound: the kernels line's "batch" entries of rows #10 and #13); (b)
+     flow_fsgm_batch on the 8 config-4 frames equal bit for bit to
+     per-frame flow_fsgm, frame 0 to flow_fsgm_reference (validity equal,
+     flow within 1e-3), its launches held to the lockstep plan (the
+     flow_batch path: one K5 and one K4 a level-pass whatever B is), and
+     chunk=None's pass size from the card's free memory (3 4K frames do
+     not go in one pass); (c)
+     every fb_backward x fb_grid mode at 96x128 over 3 frames, batched
+     (chunk None and 2) equal to per-frame flow_fsgm, launches held to the
+     plan, frame 0 to flow_fsgm_reference; (d) utils/profiling.profile_flow
+     at B = 1 and B = 8: wall and busy ms, busy share, device launches and
+     kernel-wrapper launches a frame, peak memory; (e) `cli serve` with
+     the flow preset: a flow_batch request over 2 pairs and a flow request,
+     the .flo files equal to flow_fsgm.
 
 Each kernel's bound_ms is the larger of two times for this run's shapes:
 the bytes it must move (each input read once, each output written once;
@@ -246,11 +272,12 @@ SOURCES = {
                    "tools/strideroll_probe.py:59",
                    "tests/unit/test_property.py:142"], ()),
     "extract_flow": ("extract_flow", "fsgm_tpu/ops/pallas/extract_tr.py:387",
-                     None, ("flow", "flow_tiled", "bench", "video", "kitti",
-                            "multiproc_flow")),
+                     None, ("flow", "flow_batch", "flow_tiled", "bench",
+                            "video", "kitti", "multiproc_flow")),
     "label_minor_from_major": (
         "transpose", "fsgm_tpu/ops/pallas/transpose_pallas.py:83", None,
-        ("flow", "flow_tiled", "bench", "video", "kitti", "multiproc_flow")),
+        ("flow", "flow_batch", "flow_tiled", "bench", "video", "kitti",
+         "multiproc_flow")),
     "min16_probe": ("min16_probe", "tools/tr_int16_probe.py:41", None, ()),
 }
 PROBE_SHAPE = (376, 1280, 128)  # tools/strideroll_probe.py's H, W, L
@@ -265,6 +292,11 @@ SGM_KERNELS = ("sgm_sweep", "sgm_sweep_family")  # K2's two launch forms
 RANKS = 2               # torch.distributed ranks of phase 11, on one card
 RANK_TIMEOUT_S = 300.0  # each launch of phase 11's ranks
 DSHARD_TD = 4           # label slices of stereo_sgm_dsharded at KITTI
+FLOW_BATCH = 8          # config-4 frames of phase 12's flow_fsgm_batch
+UHD_K5_FRAMES = 3       # 4K level-0 label-major costs in one K5 (> 2^31 B)
+UHD_K4_FRAMES = 2       # 4K level-0 int16 S in one K4
+MODES_HW = (96, 128)    # phase 12's fb_backward x fb_grid frames
+MODES_FRAMES = 3
 
 
 def ptxas_record() -> dict:
@@ -373,12 +405,19 @@ def device_launches(fn) -> int:
                if e.device_type == DeviceType.CUDA)
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10) -> float | None:
     """torch.profiler's device time of one fn() call for a fn that launches
     each of its kernels once, after one warm-up call
-    (utils/card_timing.py)."""
+    (utils/card_timing.py); None where no profile recorded a launch, so
+    that the kernels line prints null and never a time it did not
+    measure."""
     from fsgm_tpu_torch.utils import card_timing
     return card_timing.device_ms(fn, reps)
+
+
+def ms_text(ms: float | None) -> str:
+    """A measured ms for a log line, or "not recorded"."""
+    return "not recorded" if ms is None else f"{ms:.4f} ms"
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -684,22 +723,29 @@ def check_cli(params, dev) -> None:
           f"outputs == stereo_sgm within {worst} (PNG step 1/256)")
 
 
-def flow_level(hw, params, dev) -> dict:
+def flow_level(hw, params, dev, frames: int | None = None) -> dict:
     """One flow level as the main path builds it, on a blockwise pair with a
     non-zero prior (the ground truth, rounded, plus integer noise in
     [-2, 2] from the seed): census, label-major cost padded to a multiple
-    of 32, and the P2' tables of the 8 directions."""
+    of 32, and the P2' tables of the 8 directions.  With ``frames``, that
+    many pairs (seeds SEED ... SEED + frames - 1) stacked on a leading
+    axis, as the batched path builds a level over its slices."""
     from fsgm_tpu_torch.ops.census import census_transform
     from fsgm_tpu_torch.ops.cost import cost_volume_flow_major
     from fsgm_tpu_torch.ops.kernels import aggregate as agg
     from fsgm_tpu_torch.params import DIRS_8
 
     h, w = hw
-    t1, t2, gt, _ = flow_pair(h, w, SEED, dev)
-    rng = np.random.default_rng(SEED)
-    prior = np.rint(gt) + rng.integers(-2, 3, gt.shape)
-    bu, bv = (torch.from_numpy(prior[..., k].astype(np.int32)).to(dev)
-              for k in (0, 1))
+    got = []
+    for seed in range(SEED, SEED + (frames or 1)):
+        t1, t2, gt, _ = flow_pair(h, w, seed, dev)
+        rng = np.random.default_rng(seed)
+        prior = np.rint(gt) + rng.integers(-2, 3, gt.shape)
+        got.append((t1, t2) + tuple(
+            torch.from_numpy(prior[..., k].astype(np.int32)).to(dev)
+            for k in (0, 1)))
+    t1, t2, bu, bv = (torch.stack(x) if frames else x[0]
+                      for x in zip(*got))
     require(bool((bu != 0).any() and (bv != 0).any()), "prior is zero")
     nl = params.num_labels
     cen1 = census_transform(t1, params.census_window)
@@ -709,8 +755,8 @@ def flow_level(hw, params, dev) -> dict:
                                     nl_pad=-(-nl // 32) * 32)
     p2es = [agg.p2_effective(t1, r, params.p1, params.p2, params.adaptive_p2)
             for r in DIRS_8]
-    return dict(img=t1, cost_m=cost_m, p2es=p2es, dirs=DIRS_8, nl=nl,
-                e=params.window_extent, p1=params.p1,
+    return dict(img=t1, img2=t2, cost_m=cost_m, p2es=p2es, dirs=DIRS_8,
+                nl=nl, e=params.window_extent, p1=params.p1,
                 p2_max=agg.p2_bound(params.p1, params.p2),
                 s_dtype=agg.plan_dtypes(8 * (params.invalid_cost
                                              + params.p2)))
@@ -1228,24 +1274,42 @@ def k2_launches(shape, dev, dirs, params, s_max=None,
     return {k: n for k, n in out.items() if n}
 
 
-def flow_k2_launches(img, fparams, dev) -> dict:
-    """{kernel: launches} of K2 in one flow_fsgm call: aggregate_paths'
-    launches (k2_launches) on every pyramid level of the forward pass and
-    on the backward pass's levels (from level 1 with fb_backward="half",
-    every level otherwise)."""
+def flow_launches(img, fparams, dev, frames: int = 1) -> dict:
+    """{kernel: launches} of one flow_fsgm_batch call over ``frames`` frames
+    of img's shape (flow_fsgm: frames = 1), as models/flow.py runs the
+    pyramid: one level-pass (one K5, one aggregate_paths plan, one K4) per
+    level, over 2 x frames slices where the backward pass runs beside the
+    forward one (every level under fb_backward full and cheap, levels >= 1
+    under half) and over frames slices elsewhere; "single" adds one
+    backward level-pass at level 0 over frames slices; the last level of
+    "cheap" extracts each half apart (two K4 launches) where its params
+    differ.  K2's launches are aggregate_paths' (k2_launches) for each
+    level-pass's slices."""
     from fsgm_tpu_torch.models.flow import build_pyramid
     from fsgm_tpu_torch.params import DIRS_8
     nd = -(-fparams.num_labels // 32) * 32
     shapes = [tuple(p.shape) for p in build_pyramid(img, fparams.levels)]
-    if fparams.fb_check:
-        shapes += shapes[1 if fparams.fb_backward == "half" else 0:]
-    total: dict = {}
-    for h, w in shapes:
-        for k, n in k2_launches((h, w, nd), dev, DIRS_8, fparams,
+    mode = fparams.fb_backward if fparams.fb_check else None
+    stop = {"full": 0, "cheap": 0, "half": 1}.get(mode, len(shapes))
+    split = mode == "cheap" and (fparams.subpixel or fparams.median_filter)
+    passes = [(hw, 2 * frames if lvl >= stop else frames,
+               2 if split and lvl == stop else 1)
+              for lvl, hw in enumerate(shapes)]
+    if mode == "single":
+        passes.append((shapes[0], frames, 1))
+    total = {"label_minor_from_major": len(passes),
+             "extract_flow": sum(k4 for _, _, k4 in passes)}
+    for (h, w), n, _ in passes:
+        for k, c in k2_launches((n, h, w, nd), dev, DIRS_8, fparams,
                                 8 * (fparams.invalid_cost + fparams.p2),
                                 fparams.window_extent).items():
-            total[k] = total.get(k, 0) + n
+            total[k] = total.get(k, 0) + c
     return total
+
+
+def k2_part(launches: dict) -> dict:
+    """The K2 launches (both forms) of a {kernel: launches} record."""
+    return {k: n for k, n in launches.items() if k in SGM_KERNELS}
 
 
 @contextlib.contextmanager
@@ -1514,13 +1578,14 @@ def check_family_choice(params, tparams, fparams, f1, f2, dev,
             k2_launches((BATCH,) + TSUKUBA, dev, tparams.dirs, tparams), 1),
         "flow config 4": (
             lambda: flow_fsgm(f1, f2, fparams), 1,
-            flow_k2_launches(f1, fparams, dev), None)}
+            k2_part(flow_launches(f1, fparams, dev)), None)}
     out = {}
     for tag, (fn, frames, want, calls) in cells.items():
         got, launches = counted(fn)
-        k2 = {k: n for k, n in launches.items() if k in SGM_KERNELS}
+        k2 = k2_part(launches)
         require(k2 == want, f"{tag}: K2 launches {k2} != the plan's {want}")
-        calls = calls or launches["extract_flow"]  # one K2 call a level
+        # one K2 call a level-pass, as one K5
+        calls = calls or launches["label_minor_from_major"]
         rec = dict(frames=frames, launches=k2,
                    ms=median_ms(fn, reps=5) / frames)
         for fuse, name in ((True, "family"), (False, "per_direction")):
@@ -1530,8 +1595,7 @@ def check_family_choice(params, tparams, fparams, f1, f2, dev,
             same = (all(torch.equal(a, b) for a, b in zip(got, other))
                     if isinstance(got, tuple) else torch.equal(got, other))
             require(same, f"{tag}: the plan's S != all {name} launches")
-            forced = {k: n for k, n in other_launches.items()
-                      if k in SGM_KERNELS}
+            forced = k2_part(other_launches)
             rec[f"{name}_launches"] = forced
             require(forced == ({"sgm_sweep_family": groups * calls} if fuse
                                else {"sgm_sweep": 8 * calls}),
@@ -1775,8 +1839,9 @@ def time_family(params, tparams, fparams, dev, card_line: str) -> dict:
         library_int32_ms=lib32, library_device_ms=lib_dev)
     print(f"time min16_probe on {MIN16_N} values (event ms of one call, "
           f"device ms): {json.dumps(forms)}; torch.minimum int16 "
-          f"{lib16:.4f} ms (device {lib_dev['int16']:.4f}), int32 "
-          f"{lib32:.4f} ms (device {lib_dev['int32']:.4f}) ({card_line})")
+          f"{lib16:.4f} ms (device {ms_text(lib_dev['int16'])}), int32 "
+          f"{lib32:.4f} ms (device {ms_text(lib_dev['int32'])}) "
+          f"({card_line})")
     return rows
 
 
@@ -1830,15 +1895,11 @@ def check_bench(dev, card_line: str) -> dict:
                 and ctx["card"] == torch.cuda.get_device_name(0),
                 f"bench {cfg} context {ctx}")
         p = bench.bench_params(cfg)
-        if cfg in bench.FLOW_CELLS:
-            k2 = flow_k2_launches(torch.zeros((h, w), dtype=torch.uint8,
-                                              device=dev), p, dev)
-            want = {k: v * calls * batch for k, v in k2.items()}
-            got = {k: v for k, v in n.items() if k in SGM_KERNELS}
-            require(got == want and n.get("extract_flow", 0) > 0
-                    and n.get("label_minor_from_major", 0) > 0
-                    and len(n) == 2 + len(want),
-                    f"bench {cfg} launches {n}, K2 wanted {want}")
+        if cfg in bench.FLOW_CELLS:  # B frames in one pass a call
+            want = {k: v * calls for k, v in flow_launches(
+                torch.zeros((h, w), dtype=torch.uint8, device=dev), p, dev,
+                batch).items()}
+            require(n == want, f"bench {cfg} launches {n} != {want}")
         else:
             want = {"census_cost": calls, "extract_stereo": calls,
                     **{k: v * calls for k, v in k2_launches(
@@ -2239,6 +2300,216 @@ def check_dryrun(card_line: str) -> None:
               f"{card_line})")
 
 
+def exact_err(a, b) -> int:
+    """0 where a equals b bit for bit, else the largest |a - b|."""
+    return 0 if torch.equal(a, b) else max_err(a, b)
+
+
+def check_flow_frame_axis(fparams, dev, card_line: str) -> tuple:
+    """12(a): K5 and K4 with a frame axis against their plain versions, one
+    launch each: on FLOW_BATCH config-4 level-0 frames (the batched path's
+    cost, K2 over the frames, then K4), on UHD_K5_FRAMES frames of the 4K
+    level-0 label-major cost (random bytes, more than 2^31 bytes: the
+    kernels' 64-bit offsets) and on UHD_K4_FRAMES frames of 4K level-0
+    int16 S (random values below 2^15); the level-0 frames' K5 and K4
+    timed beside their plain versions and bounds.  Returns (errs, times)."""
+    from fsgm_tpu_torch.ops.kernels import extract, transpose
+    lv = flow_level(FLOW_HW, fparams, dev, frames=FLOW_BATCH)
+    (c, n5) = counted(lambda: transpose.label_minor_from_major(lv["cost_m"]))
+    errs = {"label_minor_from_major": exact_err(
+        c, transpose.label_minor_from_major_plain(lv["cost_m"]))}
+    s = flow_sweeps(lv, c)
+    nl, e = lv["nl"], lv["e"]
+    _, n4 = counted(lambda: extract.extract_flow(s, nl, e))
+    require(n5 == {"label_minor_from_major": 1}
+            and n4 == {"extract_flow": 1},
+            f"frame axis: K5 {n5}, K4 {n4} launches, not one each")
+    errs["extract_flow"] = k4_err(s, nl, e, f"K4 over {FLOW_BATCH} frames")
+    require(errs["label_minor_from_major"] == 0,
+            f"K5 over {FLOW_BATCH} frames != plain")
+    fh, fw = FLOW_HW
+    nd = c.shape[-1]
+    px = FLOW_BATCH * fh * fw
+    cost_m = lv["cost_m"]
+    work = {
+        "label_minor_from_major": (
+            lambda: transpose.label_minor_from_major(cost_m),
+            lambda: transpose.label_minor_from_major_plain(cost_m),
+            (2 * px * nd, 0),
+            lambda: cost_m.transpose(-2, -1).contiguous()),
+        "extract_flow": (
+            lambda: extract.extract_flow(s, nl, e, fparams.subpixel),
+            lambda: extract.extract_flow_plain(s, nl, e, fparams.subpixel),
+            (px * nl * s.element_size() + 7 * px * 4, 3 * px * nl), None)}
+    times = {}
+    for name, (kern, plain, (nbytes, nops), lib) in work.items():
+        b_ms, b_by = bound(nbytes, nops)
+        t = dict(frames=FLOW_BATCH, ms=median_ms(kern),
+                 device_ms=device_ms(kern),
+                 plain_ms=median_ms(plain, reps=5, warmup=1), bound_ms=b_ms,
+                 bound_by=b_by,
+                 library_ms=None if lib is None else median_ms(lib))
+        if lib is not None:
+            t["library_device_ms"] = device_ms(lib)
+        times[name] = t
+        print(f"time {name} over {FLOW_BATCH} config-4 level-0 frames (one "
+              f"launch): {json.dumps(t)} ({nbytes} B, {nops} ops; "
+              f"{card_line})")
+    del lv, c, s, cost_m, work
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    h, w = UHD[:2]
+    vol = torch.randint(0, 256, (UHD_K5_FRAMES, h, 96, w), generator=gen,
+                        device=dev, dtype=torch.uint8)
+    require(vol.numel() > 1 << 31, "the 4K K5 volume is below 2^31 bytes")
+    err = exact_err(transpose.label_minor_from_major(vol),
+                    transpose.label_minor_from_major_plain(vol))
+    require(err == 0, f"K5 over {UHD_K5_FRAMES} 4K level-0 frames != plain")
+    errs["label_minor_from_major"] = max(errs["label_minor_from_major"], err)
+    del vol
+    torch.cuda.empty_cache()
+    s = torch.randint(0, 1 << 15, (UHD_K4_FRAMES, h, w, 96), generator=gen,
+                      device=dev, dtype=torch.int16)
+    errs["extract_flow"] = max(errs["extract_flow"], k4_err(
+        s, nl, e, f"K4 over {UHD_K4_FRAMES} 4K level-0 frames"))
+    del s
+    torch.cuda.empty_cache()
+    print(f"K5 and K4 with a frame axis == plain, one launch each: "
+          f"{FLOW_BATCH} config-4 level-0 frames, {UHD_K5_FRAMES} 4K "
+          f"label-major costs ({UHD_K5_FRAMES * h * 96 * w} B), "
+          f"{UHD_K4_FRAMES} 4K int16 S: {errs}")
+    return errs, times
+
+
+def check_flow_batch(fparams, dev, fref, fref_valid, card_line: str
+                     ) -> tuple:
+    """12(b)-(d): flow_fsgm_batch on FLOW_BATCH config-4 frames (seeds SEED
+    ...) equal to per-frame flow_fsgm bit for bit, frame 0 held to
+    flow_fsgm_reference (phase 5's), its launches held to the lockstep
+    plan; every fb_backward x fb_grid mode at MODES_HW over MODES_FRAMES
+    frames, batched (and chunk 2) equal to per-frame, launches held to the
+    plan, frame 0 held to flow_fsgm_reference; ms, device launches, busy
+    share and peak a frame at B = 1 and B = FLOW_BATCH
+    (utils/profiling.profile_flow).  Returns (the flow_batch path's
+    launches, {B: record})."""
+    from fsgm_tpu_torch import flow_fsgm, flow_fsgm_batch, flow_fsgm_reference
+    from fsgm_tpu_torch.utils.profiling import profile_flow
+    i1, i2 = (torch.stack(x) for x in zip(*[
+        flow_pair(*FLOW_HW, SEED + k, dev)[:2] for k in range(FLOW_BATCH)]))
+    (flows, valids), launches = counted(
+        lambda: flow_fsgm_batch(i1, i2, fparams))
+    want = flow_launches(i1[0], fparams, dev, FLOW_BATCH)
+    require(launches == want, f"flow_fsgm_batch x {FLOW_BATCH} launches "
+            f"{launches} != the lockstep plan's {want}")
+    for k in range(FLOW_BATCH):
+        f, v = flow_fsgm(i1[k], i2[k], fparams)
+        require(torch.equal(flows[k], f) and torch.equal(valids[k], v),
+                f"flow_fsgm_batch frame {k} != flow_fsgm")
+    require(torch.equal(valids[0], fref_valid), "batched frame 0: validity "
+            "!= flow_fsgm_reference")
+    ferr = float((flows[0] - fref)[valids[0]].abs().max())
+    require(ferr <= FLOW_TOL, f"batched frame 0: flow error {ferr}")
+    print(f"flow_fsgm_batch ({FLOW_BATCH} config-4 frames, one pass) == "
+          f"per-frame flow_fsgm bit for bit; frame 0 vs flow_fsgm_reference:"
+          f" validity equal, max |flow err| {ferr}; launches {launches} "
+          f"(one K5 and one K4 a level-pass, as at B = 1)")
+    del flows, valids
+    # chunk=None on the card: as many frames a pass as its free memory
+    # holds, so 3 4K pairs (~27 GB a frame) do not go in one pass
+    from fsgm_tpu_torch.models import flow as flow_mod
+    uhd = torch.zeros((3,) + UHD[:2], dtype=torch.uint8, device=dev)
+    n_uhd = flow_mod._frames_a_pass(uhd, dataclasses.replace(
+        fparams, levels=UHD_FLOW_LEVELS))
+    require(1 <= n_uhd < 3, f"chunk=None would run {n_uhd} 4K frames a pass")
+    print(f"flow_fsgm_batch chunk=None: {FLOW_BATCH} config-4 frames in one "
+          f"pass, {n_uhd} of 3 4K frames a pass "
+          f"({flow_mod._free_bytes(dev) / 2**30:.1f} GiB free)")
+    del uhd
+    m1, m2 = (torch.stack(x) for x in zip(*[
+        flow_pair(*MODES_HW, SEED + k, dev)[:2]
+        for k in range(MODES_FRAMES)]))
+    for fb_backward in ("full", "cheap", "single", "half"):
+        for fb_grid in ("full", "half"):
+            p = dataclasses.replace(fparams, fb_backward=fb_backward,
+                                    fb_grid=fb_grid)
+            tag = f"{fb_backward}/{fb_grid}"
+            (bf, bv), n = counted(lambda: flow_fsgm_batch(m1, m2, p))
+            want = flow_launches(m1[0], p, dev, MODES_FRAMES)
+            require(n == want, f"{tag}: launches {n} != {want}")
+            cf, cv = flow_fsgm_batch(m1, m2, p, chunk=2)
+            for k in range(MODES_FRAMES):
+                f, v = flow_fsgm(m1[k], m2[k], p)
+                require(torch.equal(bf[k], f) and torch.equal(bv[k], v)
+                        and torch.equal(cf[k], f) and torch.equal(cv[k], v),
+                        f"{tag}: batched frame {k} != flow_fsgm")
+            rf, rv = flow_fsgm_reference(m1[0], m2[0], p)
+            require(torch.equal(bv[0], rv) and bool(rv.any()),
+                    f"{tag}: validity != flow_fsgm_reference")
+            err = float((bf[0] - rf)[rv].abs().max())
+            require(err <= FLOW_TOL, f"{tag}: flow error {err}")
+    print(f"every fb_backward x fb_grid mode at {MODES_HW}, {MODES_FRAMES} "
+          f"frames: flow_fsgm_batch (chunk None and 2) == per-frame "
+          f"flow_fsgm bit for bit, launches == the lockstep plan, frame 0 "
+          f"== flow_fsgm_reference within {FLOW_TOL}")
+    per_frame = {}
+    for b in (1, FLOW_BATCH):
+        a1, a2 = (i1[0], i2[0]) if b == 1 else (i1, i2)
+        _, n = counted(lambda: flow_fsgm_batch(a1.reshape((-1,) + FLOW_HW),
+                                               a2.reshape((-1,) + FLOW_HW),
+                                               fparams))
+        torch.cuda.empty_cache()
+        rec = profile_flow(a1, a2, fparams, calls=5, warmup=2)
+        per_frame[b] = {k: rec[k] for k in (
+            "busy_ms", "wall_ms", "busy_share", "launches", "peak_mib")}
+        per_frame[b]["kernel_launches"] = {k: v / b for k, v in n.items()}
+        print(f"flow B={b}: {per_frame[b]['wall_ms']:.4f} ms/frame wall, "
+              f"{per_frame[b]['busy_ms']:.4f} ms/frame busy (share "
+              f"{per_frame[b]['busy_share']:.4f}), "
+              f"{per_frame[b]['launches']:.2f} device launches/frame, peak "
+              f"{per_frame[b]['peak_mib']:.1f} MiB, kernel-wrapper launches "
+              f"a frame {per_frame[b]['kernel_launches']} ({card_line})")
+    return launches, per_frame
+
+
+def check_serve_flow(dev) -> None:
+    """12(e): `cli serve --preset configs/kitti_flow.json` on the card with
+    a flow_batch request over 2 config-4 pairs and a flow request, .flo
+    out; each written field equal to flow_fsgm's (0 where invalid) and
+    each valid share to its plane's."""
+    from fsgm_tpu_torch import flow_fsgm
+    from fsgm_tpu_torch.io import read_flo, save_gray
+    fp = load_flow_preset()
+    pairs = [flow_pair(*FLOW_HW, SEED + 20 + k, dev)[:2] for k in range(3)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        names = []
+        for k, (a, b) in enumerate(pairs):
+            save_gray(tmp / f"a{k}.png", a.cpu().numpy())
+            save_gray(tmp / f"b{k}.png", b.cpu().numpy())
+            names.append((str(tmp / f"a{k}.png"), str(tmp / f"b{k}.png"),
+                          str(tmp / f"f{k}.flo")))
+        reqs = [{"task": "flow_batch", "id": "fb",
+                 "pairs": [list(x) for x in names[:2]]},
+                {"task": "flow", "id": "f", "first": names[2][0],
+                 "second": names[2][1], "out": names[2][2]}]
+        out = run_cli(["serve", "--preset", str(REPO / "configs" /
+                                                 "kitti_flow.json")],
+                      stdin="".join(json.dumps(r) + "\n" for r in reqs)
+                      + "\n")
+        require([r.get("id") for r in out[1:-1]] == ["fb", "f"]
+                and all("error" not in r for r in out),
+                f"serve flow responses {out}")
+        fracs = out[1]["valid_frac"] + [out[2]["valid_frac"]]
+        for (a, b), (_, _, o), frac in zip(pairs, names, fracs):
+            fl, va = flow_fsgm(a, b, fp)
+            want = torch.where(va[..., None], fl, 0.0).cpu().numpy()
+            require(np.array_equal(read_flo(o), want)
+                    and frac == round(float(va.float().mean()), 4),
+                    f"serve {o} != flow_fsgm")
+    print(f"cli serve flow_batch (2 pairs) + flow on {FLOW_HW} PNGs: .flo "
+          f"== flow_fsgm, valid shares equal")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2332,10 +2603,9 @@ def main() -> int:
     torch.cuda.synchronize()
     launches["flow"] = dict(_build.LAUNCHES)
     print(f"launches in one flow_fsgm call: {launches['flow']}")
-    want = flow_k2_launches(f1, fparams, dev)
-    got = {k: n for k, n in launches["flow"].items() if k in SGM_KERNELS}
-    require(got == want and len(launches["flow"]) == 2 + len(want),
-            f"flow K2 launches {got} != {want}")
+    want = flow_launches(f1, fparams, dev)
+    require(launches["flow"] == want,
+            f"flow launches {launches['flow']} != the lockstep plan's {want}")
     fref, fref_valid = flow_fsgm_reference(f1, f2, fparams)
     require(tuple(flow.shape) == (fh, fw, 2) and flow.dtype == torch.float32
             and bool(torch.isfinite(flow).all()), "flow shape / finiteness")
@@ -2447,11 +2717,11 @@ def main() -> int:
         if name in ("extract_flow", "label_minor_from_major"):
             # the kernel's own time beside the call's
             times[name]["device_ms"] = device_ms(kern)
-            lib_txt += f", device {times[name]['device_ms']:.4f} ms"
+            lib_txt += f", device {ms_text(times[name]['device_ms'])}"
         if lib is not None:
             times[name]["library_device_ms"] = device_ms(lib)
             lib_txt += (f", library device "
-                        f"{times[name]['library_device_ms']:.4f} ms")
+                        f"{ms_text(times[name]['library_device_ms'])}")
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms by {b_by} ({nbytes} B, {nops} ops)"
               f"{lib_txt} (shape {shape}; {card_line})")
@@ -2552,10 +2822,11 @@ def main() -> int:
     print(f"batched path per frame, B=1 vs B={BATCH}: "
           f"{json.dumps(per_frame)} ({card_line})")
 
-    # 8. tiled stereo and flow: K2 with carry, K3 on windows, config 5,
-    #    KITTI tilings, the 4K flow leg, timings
     del c, p2es, ext_args, lv, fc, fs, bl, br, bcl, bcr
     torch.cuda.empty_cache()
+
+    # 8. tiled stereo and flow: K2 with carry, K3 on windows, config 5,
+    #    KITTI tilings, the 4K flow leg, timings
     errs = merge_errs(errs, check_tiled_kernels(params, dev))
     launches["stereo_tiled"] = check_config5(dev)
     check_kitti_tiled(params, dev)
@@ -2594,6 +2865,21 @@ def main() -> int:
     check_dsharded(params, dev, card_line)
     check_dryrun(card_line)
     print(f"phase 11: {time.perf_counter() - t11:.2f} s")
+
+    # 12. batched flow: K5 and K4 with a frame axis, flow_fsgm_batch over
+    #     FLOW_BATCH frames and every mode, launches counted in its call
+    #     only, per-frame numbers at B = 1 and B = FLOW_BATCH, serve
+    t12 = time.perf_counter()
+    torch.cuda.empty_cache()
+    axis_errs, axis_times = check_flow_frame_axis(fparams, dev, card_line)
+    errs = merge_errs(errs, axis_errs)
+    launches["flow_batch"], flow_per_frame = check_flow_batch(
+        fparams, dev, fref, fref_valid, card_line)
+    check_serve_flow(dev)
+    print(f"flow per frame, B=1 vs B={FLOW_BATCH}: "
+          f"{json.dumps(flow_per_frame)} ({card_line})")
+    print(f"phase 12: {time.perf_counter() - t12:.2f} s")
+
     times["sgm_sweep_family"] = {k: vtimes["family"][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     times["wta_right"] = {k: vtimes["wta_right"][k] for k in (
@@ -2643,8 +2929,10 @@ def main() -> int:
             row["probe_shape"] = vtimes["wta_right_probe"]
         if name == "extract_flow":  # the row's times: config-4 level 0
             row["ptxas"] = lib_ptxas["extract_flow"]
+            row["batch"] = axis_times[name]
         if name == "label_minor_from_major":  # config-4 level 0, 96 slots
             row["ptxas"] = lib_ptxas["transpose"]
+            row["batch"] = axis_times[name]
         if name == "min16_probe":  # the row's times: the packed form
             row.update(forms=vtimes["min16"]["forms"], n=MIN16_N,
                        library_int32_ms=vtimes["min16"]["library_int32_ms"],

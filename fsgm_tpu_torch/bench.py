@@ -10,7 +10,8 @@ Counterpart of the repository's bench.py.  Each cell (CONFIGS) runs its
 preset (configs/*.json, through bench_params) on B synthetic pairs made
 from seeds 0 .. B-1: random_dot_stereo(H, W, D, seed=s) through
 stereo_sgm_batch, or constant_flow_pair(H, W, 3, -2, seed=s) through
-flow_fsgm_batch (today a loop over the frames).
+flow_fsgm_batch (all B frames in one pass: one launch set a pyramid level,
+the forward and backward passes in lockstep where both run).
 
 stdout is exactly one JSON line, {"metric", "value", "unit",
 "vs_baseline"}: Mpixel*disp/s = label-pixels per frame x frames/s / 1e6
@@ -26,8 +27,8 @@ in the median.  Then 6 calls, each between two CUDA events with a
 synchronisation after it; ms/frame is their median over B.  An event pair
 around a blocking call measures from the first launch to the last
 completion, so where the host enqueues more slowly than the card runs
-(single stereo frames, the flow loop) the host's gaps are in the number.
-On the CPU the host clock takes the events' place.
+(single stereo frames, flow's many small launches) the host's gaps are in
+the number.  On the CPU the host clock takes the events' place.
 
 vs_SoL (stereo cells only): the least time of sgm_bytes_model's bytes
 (K1, K2 as launch_plan launches it, K3) at the card's HBM peak

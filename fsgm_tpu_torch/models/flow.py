@@ -5,8 +5,8 @@ Counterpart of fsgm_tpu/models/flow.py (``flow_fsgm``, ``flow_fsgm_batch``,
 
     census (plain torch) -> label-major flow cost (plain torch, ops/cost.py)
     -> K5 label_minor_from_major -> K2 over 8 directions with the 2D
-    label rule (aggregate_paths: on one H100 every level of a KITTI frame
-    takes two family launches) -> K4 extract_flow -> parabola, base + offset and median (plain
+    label rule (aggregate_paths, which plans its launches from the slice
+    count) -> K4 extract_flow -> parabola, base + offset and median (plain
     torch)
 
 over the (2w+1)^2 label window centred on the 2x-upsampled coarser flow.
@@ -14,18 +14,30 @@ The label axis is padded to a multiple of 32 for the kernels; the padding
 takes part in nothing (ops/kernels/aggregate.py).  The forward-backward
 check, its backward-pass modes (``fb_backward`` full / cheap / single /
 half) and grids (``fb_grid`` full / half), and the temporal prior follow
-the JAX package exactly; the forward and backward passes of a level run one
-after the other.
+the JAX package exactly.
+
+Every level runs over a leading slice axis, as the reference's vmaps do
+(``_flow_level_pair``, ``_flow_fsgm_batch_jit``): a call takes B frames,
+and at each level where the backward pass runs, its B slices join the
+forward pass's B (the guides, census pairs and window bases of both
+directions stacked), so that level is one cost build, one K5, one K2 plan
+and one K4 over 2B slices.  Below the backward pass's last level the
+forward slices run alone.  ``flow_fsgm`` is the batch of one;
+``flow_fsgm_batch`` takes ``chunk`` frames a pass (by default all, or on
+the card as many as its free memory holds).
 
 The device is the inputs' device: CUDA tensors launch the kernels, CPU
 tensors run their plain versions.  ``flow_fsgm_reference`` composes only
-the plain versions (label-minor cost, no padding), on any device, as the
-end-to-end check of the kernels.  Flow values are float32.
+the plain versions (label-minor cost, no padding) frame by frame, the two
+directions of a level one after the other, on any device, as the
+end-to-end check of the kernels and of the slice stacking.  Flow values
+are float32.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -37,55 +49,63 @@ from fsgm_tpu_torch.ops.kernels import aggregate, extract, transpose
 
 
 # --------------------------------------------------------------------------
-# Integer-exact pyramid and flow resampling
+# Integer-exact pyramid and flow resampling, over any leading axes
 # --------------------------------------------------------------------------
 
 def downsample2x(img: torch.Tensor) -> torch.Tensor:
-    """2x2 box downsample, round-half-up: (a+b+c+d+2)//4; floor dims."""
-    h2, w2 = img.shape[0] // 2, img.shape[1] // 2
-    s = img[:2 * h2, :2 * w2].to(torch.int32).reshape(h2, 2, w2, 2)
-    return ((s.sum(dim=(1, 3)) + 2) // 4).to(img.dtype)
+    """2x2 box downsample of (..., H, W), round-half-up: (a+b+c+d+2)//4;
+    floor dims."""
+    h2, w2 = img.shape[-2] // 2, img.shape[-1] // 2
+    s = img[..., :2 * h2, :2 * w2].to(torch.int32).reshape(
+        img.shape[:-2] + (h2, 2, w2, 2))
+    return ((s.sum(dim=(-3, -1)) + 2) // 4).to(img.dtype)
 
 
 def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
-    """[level 0 (full resolution), level 1, ...]: ``levels`` images."""
+    """[level 0 (full resolution), level 1, ...]: ``levels`` images of
+    (..., H, W)."""
     pyr = [img]
     for _ in range(levels - 1):
         pyr.append(downsample2x(pyr[-1]))
     return pyr
 
 
-def _nearest_2x(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """x[i // 2, j // 2] over (out_h, out_w), the last row / column repeated
-    past 2x the input (odd finer levels)."""
+def _nearest_2x(x: torch.Tensor, out_h: int, out_w: int,
+                row_dim: int) -> torch.Tensor:
+    """x[..., i // 2, j // 2, ...] over (out_h, out_w) at axes (row_dim,
+    row_dim + 1), the last row / column repeated past 2x the input (odd
+    finer levels)."""
     dev = x.device
-    rows = (torch.arange(out_h, device=dev) // 2).clamp_(max=x.shape[0] - 1)
-    cols = (torch.arange(out_w, device=dev) // 2).clamp_(max=x.shape[1] - 1)
-    return x.index_select(0, rows).index_select(1, cols)
+    rows = (torch.arange(out_h, device=dev) // 2).clamp_(
+        max=x.shape[row_dim] - 1)
+    cols = (torch.arange(out_w, device=dev) // 2).clamp_(
+        max=x.shape[row_dim + 1] - 1)
+    return x.index_select(row_dim, rows).index_select(row_dim + 1, cols)
 
 
 def upsample_flow_2x(flow: torch.Tensor, out_h: int, out_w: int
                      ) -> torch.Tensor:
-    """Nearest-neighbour 2x upsample of (H, W, 2), values x2, edge-extended
-    to (out_h, out_w)."""
-    return _nearest_2x(flow, out_h, out_w) * 2.0
+    """Nearest-neighbour 2x upsample of (..., H, W, 2), values x2,
+    edge-extended to (out_h, out_w)."""
+    return _nearest_2x(flow, out_h, out_w, -3) * 2.0
 
 
 def upsample_valid_2x(valid: torch.Tensor, out_h: int, out_w: int
                       ) -> torch.Tensor:
-    """Nearest-neighbour 2x upsample of a bool validity plane (the
-    fb_grid='half' merge), edge-extended to (out_h, out_w)."""
-    return _nearest_2x(valid, out_h, out_w)
+    """Nearest-neighbour 2x upsample of a bool validity plane (..., H, W)
+    (the fb_grid='half' merge), edge-extended to (out_h, out_w)."""
+    return _nearest_2x(valid, out_h, out_w, -2)
 
 
 def downsample_flow_2x(flow: torch.Tensor) -> torch.Tensor:
-    """2x2 box mean of (H, W, 2), values / 2; floor dims.  Summed in the
-    order ((a+b)+c)+d: another order can differ in the last ulp and flip a
-    rounded window centre."""
-    h2, w2 = flow.shape[0] // 2, flow.shape[1] // 2
-    x = flow[:2 * h2, :2 * w2].reshape(h2, 2, w2, 2, flow.shape[2])
-    a, b = x[:, 0, :, 0], x[:, 0, :, 1]
-    c, d = x[:, 1, :, 0], x[:, 1, :, 1]
+    """2x2 box mean of (..., H, W, 2), values / 2; floor dims.  Summed in
+    the order ((a+b)+c)+d: another order can differ in the last ulp and
+    flip a rounded window centre."""
+    h2, w2 = flow.shape[-3] // 2, flow.shape[-2] // 2
+    x = flow[..., :2 * h2, :2 * w2, :].reshape(
+        flow.shape[:-3] + (h2, 2, w2, 2, flow.shape[-1]))
+    a, b = x[..., :, 0, :, 0, :], x[..., :, 0, :, 1, :]
+    c, d = x[..., :, 1, :, 0, :], x[..., :, 1, :, 1, :]
     return (a + b + c + d) * 0.125
 
 
@@ -107,33 +127,40 @@ def _parabola(idx, v_m, v_0, v_p, size: int) -> torch.Tensor:
 
 def fb_check(flow_fwd: torch.Tensor, flow_bwd: torch.Tensor,
              max_diff: float, y0: int = 0) -> torch.Tensor:
-    """(H, W) bool: |F(p) + B(p + round(F(p)))| <= max_diff, the lookup
-    inside the image (round half to even).  An explicit validity plane:
-    no flow value is overwritten.  A row tile (parallel/tiled_flow.py)
-    passes its first global row y0 and the whole backward field."""
-    h, w = flow_fwd.shape[:2]
-    hg = flow_bwd.shape[0]
+    """(..., H, W) bool: |F(p) + B(p + round(F(p)))| <= max_diff, the
+    lookup inside the image (round half to even), each slice of the leading
+    axes in its own backward field.  An explicit validity plane: no flow
+    value is overwritten.  A row tile (parallel/tiled_flow.py) passes its
+    first global row y0 and the whole backward field."""
+    h, w = flow_fwd.shape[-3:-1]
+    hg = flow_bwd.shape[-3]
+    lead = flow_fwd.shape[:-3]
     dev = flow_fwd.device
     yy = torch.arange(h, device=dev, dtype=torch.int32)[:, None] + y0
     xx = torch.arange(w, device=dev, dtype=torch.int32)[None, :]
     tx = xx + torch.round(flow_fwd[..., 0]).to(torch.int32)
     ty = yy + torch.round(flow_fwd[..., 1]).to(torch.int32)
     inb = (tx >= 0) & (tx < w) & (ty >= 0) & (ty < hg)
-    src = ty.clamp(0, hg - 1).to(torch.int64) * w + tx.clamp(0, w - 1)
-    b = flow_bwd.reshape(hg * w, 2)[src]
+    frame = torch.arange(math.prod(lead), device=dev,
+                         dtype=torch.int64).view(lead + (1, 1)) * (hg * w)
+    src = frame + ty.clamp(0, hg - 1).to(torch.int64) * w \
+        + tx.clamp(0, w - 1)
+    b = flow_bwd.reshape(-1, 2)[src]
     err = torch.sqrt((flow_fwd[..., 0] + b[..., 0]) ** 2
                      + (flow_fwd[..., 1] + b[..., 1]) ** 2)
     return inb & (err <= max_diff)
 
 
 # --------------------------------------------------------------------------
-# Per-level core and pyramid driver
+# Per-level core over N slices, and the pyramid pass over B frames
 # --------------------------------------------------------------------------
 
 def _level_s(img1, cen1, cen2, base_u, base_v, params: FlowParams,
              plain: bool) -> torch.Tensor:
-    """Cost volume + 8-path 2D-label aggregation of one level: (H, W, D)
-    S, D = nl (plain) or nl padded to a multiple of 32 (kernels)."""
+    """Cost volume + 8-path 2D-label aggregation of one level over N
+    slices ((N, H, W) guides, census and bases): (N, H, W, D) S, D = nl
+    (plain) or nl padded to a multiple of 32 (kernels: one K5, one K2 plan
+    over the N slices)."""
     e, r = params.window_extent, params.search_radius
     nl = params.num_labels
     s_max = 8 * (params.invalid_cost + params.p2)
@@ -154,7 +181,8 @@ def _level_s(img1, cen1, cen2, base_u, base_v, params: FlowParams,
 
 def _level_extract(s, base_u, base_v, params: FlowParams,
                    plain: bool) -> torch.Tensor:
-    """WTA + optional subpixel refinement and median on one level's S."""
+    """WTA + optional subpixel refinement and median on one level's S
+    ((..., H, W, D); one K4 over all of it) -> (..., H, W, 2) flow."""
     e, r = params.window_extent, params.search_radius
     extract_flow = extract.extract_flow_plain if plain \
         else extract.extract_flow
@@ -171,12 +199,39 @@ def _level_extract(s, base_u, base_v, params: FlowParams,
     return torch.stack([u, v], dim=-1)
 
 
+def _bases(prior_flow: torch.Tensor):
+    """The rounded window centres (base_u, base_v) of a prior flow."""
+    return (torch.round(prior_flow[..., 0]).to(torch.int32),
+            torch.round(prior_flow[..., 1]).to(torch.int32))
+
+
 def _flow_one_level(img1, cen1, cen2, prior_flow, params: FlowParams,
                     plain: bool) -> torch.Tensor:
-    base_u = torch.round(prior_flow[..., 0]).to(torch.int32)
-    base_v = torch.round(prior_flow[..., 1]).to(torch.int32)
+    """One level of one direction over N slices -> (N, H, W, 2)."""
+    base_u, base_v = _bases(prior_flow)
     s = _level_s(img1, cen1, cen2, base_u, base_v, params, plain)
     return _level_extract(s, base_u, base_v, params, plain)
+
+
+def _flow_level_pair(i1, i2, c1, c2, prior_f, prior_b, params: FlowParams,
+                     bwd_params: FlowParams):
+    """One pyramid level of the forward AND backward passes over B frames
+    as one launch set over 2B slices (the JAX package's _flow_level_pair
+    under its frame vmap): the forward slices [i1, c1 vs c2, prior_f]
+    stacked on the backward ones [i2, c2 vs c1, prior_b], one cost build,
+    K5, K2 plan and K4 over them.  Extraction runs over both halves at
+    once where bwd_params equals params, else each half with its own
+    params (the last backward level under fb_backward="cheap").  Per-slice
+    arithmetic is that of two _flow_one_level calls on the kernel path."""
+    b = i1.shape[0]
+    base_u, base_v = _bases(torch.cat([prior_f, prior_b]))
+    s = _level_s(torch.cat([i1, i2]), torch.cat([c1, c2]),
+                 torch.cat([c2, c1]), base_u, base_v, params, plain=False)
+    if bwd_params == params:
+        flow = _level_extract(s, base_u, base_v, params, plain=False)
+        return flow[:b], flow[b:]
+    return (_level_extract(s[:b], base_u[:b], base_v[:b], params, False),
+            _level_extract(s[b:], base_u[b:], base_v[b:], bwd_params, False))
 
 
 def _zero_flow(img: torch.Tensor) -> torch.Tensor:
@@ -184,15 +239,16 @@ def _zero_flow(img: torch.Tensor) -> torch.Tensor:
                        device=img.device)
 
 
-def _fsgm_flow_oneway(pyr1, pyr2, cens1, cens2, params: FlowParams,
-                      plain: bool, init_flow=None) -> torch.Tensor:
-    """Coarse-to-fine pass over precomputed pyramids and census
-    descriptors; ``init_flow`` (coarsest scale) seeds it instead of zeros."""
+def _fsgm_flow_oneway(pyr1, cens1, cens2, params: FlowParams, plain: bool,
+                      init_flow=None) -> torch.Tensor:
+    """Coarse-to-fine pass over precomputed (B, h, w) pyramids and census
+    descriptors; ``init_flow`` (coarsest scale) seeds it instead of
+    zeros."""
     flow = _zero_flow(pyr1[-1]) if init_flow is None else init_flow
     for lvl in range(params.levels - 1, -1, -1):
         i1 = pyr1[lvl]
         if lvl < params.levels - 1:
-            flow = upsample_flow_2x(flow, i1.shape[0], i1.shape[1])
+            flow = upsample_flow_2x(flow, i1.shape[-2], i1.shape[-1])
         flow = _flow_one_level(i1, cens1[lvl], cens2[lvl], flow, params,
                                plain)
     return flow
@@ -205,7 +261,9 @@ def _fsgm_flow_both(pyr1, pyr2, cens1, cens2, params: FlowParams,
     backward pass runs at levels >= bwd_stop (0 for full/cheap, 1 for
     half) with the roles of the images swapped; levels above its last one
     extract with the full ``params`` (their output is the next level's
-    prior), its last level with ``bwd_final_params``.
+    prior), its last level with ``bwd_final_params``.  The kernel path
+    runs both passes of such a level in lockstep (_flow_level_pair); the
+    plain path (``plain``, the reference) one after the other.
 
     Returns (forward flow at full resolution, backward flow at level
     bwd_stop's resolution)."""
@@ -215,39 +273,49 @@ def _fsgm_flow_both(pyr1, pyr2, cens1, cens2, params: FlowParams,
         flow_f, flow_b = init_flow, -init_flow
     for lvl in range(params.levels - 1, -1, -1):
         i1, i2 = pyr1[lvl], pyr2[lvl]
+        c1, c2 = cens1[lvl], cens2[lvl]
+        h, w = i1.shape[-2:]
         if lvl < params.levels - 1:
-            flow_f = upsample_flow_2x(flow_f, i1.shape[0], i1.shape[1])
+            flow_f = upsample_flow_2x(flow_f, h, w)
             if lvl >= bwd_stop:
-                flow_b = upsample_flow_2x(flow_b, i1.shape[0], i1.shape[1])
-        flow_f = _flow_one_level(i1, cens1[lvl], cens2[lvl], flow_f, params,
-                                 plain)
-        if lvl >= bwd_stop:
-            bp = bwd_final_params if lvl == bwd_stop else params
-            flow_b = _flow_one_level(i2, cens2[lvl], cens1[lvl], flow_b, bp,
-                                     plain)
+                flow_b = upsample_flow_2x(flow_b, h, w)
+        if lvl < bwd_stop:
+            flow_f = _flow_one_level(i1, c1, c2, flow_f, params, plain)
+            continue
+        bp = bwd_final_params if lvl == bwd_stop else params
+        if plain:
+            flow_f = _flow_one_level(i1, c1, c2, flow_f, params, plain)
+            flow_b = _flow_one_level(i2, c2, c1, flow_b, bp, plain)
+        else:
+            flow_f, flow_b = _flow_level_pair(i1, i2, c1, c2, flow_f,
+                                              flow_b, params, bp)
     return flow_f, flow_b
 
 
-def _check(img1: torch.Tensor, img2: torch.Tensor, prior_flow) -> None:
-    if img1.shape != img2.shape or img1.dim() != 2:
-        raise ValueError(f"image shapes {tuple(img1.shape)} and "
-                         f"{tuple(img2.shape)} must be equal (H, W)")
-    if img1.device != img2.device:
+def _check(imgs1: torch.Tensor, imgs2: torch.Tensor, prior_flow,
+           batched: bool) -> None:
+    dims = "(B, H, W), B >= 1" if batched else "(H, W)"
+    if imgs1.shape != imgs2.shape or imgs1.dim() != 2 + batched \
+            or (batched and imgs1.shape[0] == 0):
+        raise ValueError(f"image shapes {tuple(imgs1.shape)} and "
+                         f"{tuple(imgs2.shape)} must be equal {dims}")
+    if imgs1.device != imgs2.device:
         raise ValueError("images lie on different devices")
     if prior_flow is not None and (
-            tuple(prior_flow.shape) != tuple(img1.shape) + (2,)
-            or prior_flow.device != img1.device):
+            tuple(prior_flow.shape) != tuple(imgs1.shape) + (2,)
+            or prior_flow.device != imgs1.device):
         raise ValueError(f"prior_flow {tuple(prior_flow.shape)} on "
                          f"{prior_flow.device} must be (H, W, 2) on the "
-                         f"images' device {img1.device}")
+                         f"images' device {imgs1.device}")
 
 
-def _flow(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
+def _flow(imgs1: torch.Tensor, imgs2: torch.Tensor, params: FlowParams,
           prior_flow, plain: bool):
-    """The port of fsgm_tpu/models/flow.py::_flow_fsgm_jit."""
-    _check(img1, img2, prior_flow)
-    pyr1 = build_pyramid(img1, params.levels)
-    pyr2 = build_pyramid(img2, params.levels)
+    """The port of fsgm_tpu/models/flow.py::_flow_fsgm_jit over (B, H, W)
+    frames (its vmap in _flow_fsgm_batch_jit) -> ((B, H, W, 2) flow,
+    (B, H, W) validity)."""
+    pyr1 = build_pyramid(imgs1, params.levels)
+    pyr2 = build_pyramid(imgs2, params.levels)
     cens1 = [census_transform(x, params.census_window) for x in pyr1]
     cens2 = [census_transform(x, params.census_window) for x in pyr2]
     init = None
@@ -256,15 +324,14 @@ def _flow(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
         for _ in range(params.levels - 1):
             init = downsample_flow_2x(init)
     if not params.fb_check:
-        flow = _fsgm_flow_oneway(pyr1, pyr2, cens1, cens2, params, plain,
-                                 init)
-        return flow, torch.ones(flow.shape[:2], dtype=torch.bool,
+        flow = _fsgm_flow_oneway(pyr1, cens1, cens2, params, plain, init)
+        return flow, torch.ones(flow.shape[:-1], dtype=torch.bool,
                                 device=flow.device)
+    h, w = imgs1.shape[-2:]
     if params.fb_backward == "single":
-        # one backward level at full resolution, prior = -forward flow,
-        # no subpixel or median
-        flow = _fsgm_flow_oneway(pyr1, pyr2, cens1, cens2, params, plain,
-                                 init)
+        # one backward level at full resolution over the B frames, prior =
+        # -forward flow, no subpixel or median
+        flow = _fsgm_flow_oneway(pyr1, cens1, cens2, params, plain, init)
         bwd_params = dataclasses.replace(params, subpixel=False,
                                          median_filter=False)
         flow_bwd = _flow_one_level(pyr2[0], cens2[0], cens1[0], -flow,
@@ -276,9 +343,8 @@ def _flow(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
         if params.fb_grid == "half":
             valid_h = fb_check(downsample_flow_2x(flow), bwd_half,
                                params.fb_max_diff * 0.5)
-            return flow, upsample_valid_2x(valid_h, flow.shape[0],
-                                           flow.shape[1])
-        flow_bwd = upsample_flow_2x(bwd_half, flow.shape[0], flow.shape[1])
+            return flow, upsample_valid_2x(valid_h, h, w)
+        flow_bwd = upsample_flow_2x(bwd_half, h, w)
     else:
         bwd_final = params
         if params.fb_backward == "cheap":
@@ -290,38 +356,86 @@ def _flow(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
         valid_h = fb_check(downsample_flow_2x(flow),
                            downsample_flow_2x(flow_bwd),
                            params.fb_max_diff * 0.5)
-        return flow, upsample_valid_2x(valid_h, flow.shape[0], flow.shape[1])
+        return flow, upsample_valid_2x(valid_h, h, w)
     return flow, fb_check(flow, flow_bwd, params.fb_max_diff)
+
+
+def _one_frame(img1, img2, params: FlowParams, prior_flow, plain: bool):
+    _check(img1, img2, prior_flow, batched=False)
+    flow, valid = _flow(img1[None], img2[None], params,
+                        None if prior_flow is None else prior_flow[None],
+                        plain)
+    return flow[0], valid[0]
 
 
 def flow_fsgm(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
               prior_flow: torch.Tensor | None = None):
-    """(H, W) uint8 pair -> (flow (H, W, 2) float32, valid (H, W) bool).
+    """(H, W) uint8 pair -> (flow (H, W, 2) float32, valid (H, W) bool): the
+    batch of one, each level's forward and backward passes in lockstep.
 
     ``valid`` is False where the forward-backward check failed (flow there
     holds the unchecked forward estimate).  ``prior_flow``, a
     full-resolution (H, W, 2) field, seeds the coarsest level (its
     negation the backward pass): the temporal prior of flow_sequence."""
-    return _flow(img1, img2, params, prior_flow, plain=False)
+    return _one_frame(img1, img2, params, prior_flow, plain=False)
 
 
 def flow_fsgm_reference(img1: torch.Tensor, img2: torch.Tensor,
                         params: FlowParams,
                         prior_flow: torch.Tensor | None = None):
-    """flow_fsgm through the plain PyTorch versions only."""
-    return _flow(img1, img2, params, prior_flow, plain=True)
+    """flow_fsgm through the plain PyTorch versions only, one frame, the
+    forward and backward passes of a level one after the other."""
+    return _one_frame(img1, img2, params, prior_flow, plain=True)
+
+
+# Card memory one frame of a pass takes, a label and pixel of level 0: the
+# port's bench flow cell (config 4, B = 8) peaks at about 42 on an H100
+# (PERF.md section 5), doubled for the modes whose backward pass reaches
+# level 0.
+_FRAME_BYTES_PER_LABEL_PIXEL = 96
+
+
+def _free_bytes(device: torch.device) -> int | None:
+    """Bytes a pass may still take on ``device``: the card's free memory
+    and what PyTorch's allocator holds unused (None on the CPU)."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def _frames_a_pass(imgs1: torch.Tensor, params: FlowParams) -> int:
+    """flow_fsgm_batch's chunk=None: all B frames, or on the card as many
+    as its free memory holds (at least one), so that a request's frame
+    count does not bound what it may ask."""
+    b, h, w = imgs1.shape
+    free = _free_bytes(imgs1.device)
+    if free is None:
+        return b
+    frame = h * w * params.num_labels * _FRAME_BYTES_PER_LABEL_PIXEL
+    return max(1, min(b, free // frame))
 
 
 def flow_fsgm_batch(imgs1: torch.Tensor, imgs2: torch.Tensor,
-                    params: FlowParams):
-    """(B, H, W) uint8 pairs -> (flows (B, H, W, 2), valids (B, H, W)):
-    each frame through the same kernels, one after another."""
-    if imgs1.dim() != 3 or imgs1.shape != imgs2.shape:
-        raise ValueError(f"batch shapes {tuple(imgs1.shape)} and "
-                         f"{tuple(imgs2.shape)} must be equal (B, H, W)")
-    flows, valids = zip(*[flow_fsgm(a, b, params)
-                          for a, b in zip(imgs1, imgs2)])
-    return torch.stack(flows), torch.stack(valids)
+                    params: FlowParams, chunk: int | None = None):
+    """(B, H, W) uint8 pairs -> (flows (B, H, W, 2), valids (B, H, W)),
+    ``chunk`` frames a pass, each pass one launch set a level over its
+    frames (both directions where the backward pass runs).  None: all B
+    frames in one pass, or on the card as many as its free memory holds.
+    A chunk that does not divide B is rounded down to one that does, as
+    in the JAX package; each frame equals flow_fsgm's."""
+    _check(imgs1, imgs2, None, batched=True)
+    b = imgs1.shape[0]
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    chunk = _frames_a_pass(imgs1, params) if chunk is None else min(chunk, b)
+    while b % chunk:
+        chunk -= 1
+    flows, valids = zip(*[_flow(imgs1[k:k + chunk], imgs2[k:k + chunk],
+                                params, None, plain=False)
+                          for k in range(0, b, chunk)])
+    return torch.cat(flows), torch.cat(valids)
 
 
 def flow_sequence(frames: torch.Tensor, params: FlowParams,

@@ -36,7 +36,8 @@ K4 replaces fsgm_tpu/ops/pallas/extract_tr.py::extract_flow_major.  From
 the label-minor flow S, whose first nl = e * e slots are the (e x e) label
 grid, it returns l_int = argmin_l S (smallest l on ties) and, with
 subpixel, the u and v triples of S at the clipped neighbour labels that
-models/flow.py::subpixel_flow feeds to its parabola.
+models/flow.py::subpixel_flow feeds to its parabola.  S may carry a
+frame axis, (N, H, W, D): one launch walks its N * H * W pixels.
 
 ``extract_stereo`` / ``extract_flow`` launch the CUDA kernels
 (csrc/extract.cu, csrc/extract_flow.cu) for CUDA tensors and take the
@@ -59,8 +60,10 @@ PLANES = 5           # kPlanes
 MAX_WIDTH = (SMEM_BYTES - RING_BYTES) // (4 * PLANES) - 1
 MAX_WIDTH_RIGHT = (SMEM_BYTES - RING_BYTES) // 4 - 1
 
-# csrc/extract_flow.cu reads S in 16-byte chunks (kChunk)
+# csrc/extract_flow.cu reads S in 16-byte chunks (kChunk); its entry takes
+# the row count N * H as an int
 K4_CHUNK = 16
+MAX_ROWS = (1 << 31) - 1
 
 
 def _w_global(w: int, gx0: int, w_global: int | None) -> int:
@@ -201,12 +204,15 @@ def check_flow_kernel_input(s: torch.Tensor) -> None:
 
 def extract_flow(s: torch.Tensor, nl: int, label_ext: int,
                  with_sub: bool = True):
-    """(H, W, D) int16/int32 flow S with nl = label_ext^2 real labels ->
-    (l_int, (u_m, u_0, u_p), (v_m, v_0, v_p)), each (H, W) int32; the
-    triples are None without with_sub."""
-    if s.dtype not in (torch.int16, torch.int32) or s.dim() != 3:
-        raise TypeError("extract_flow takes an (H, W, D) int16/int32 S")
-    h, w, nd = s.shape
+    """([N,] H, W, D) int16/int32 flow S with nl = label_ext^2 real labels
+    -> (l_int, (u_m, u_0, u_p), (v_m, v_0, v_p)), each ([N,] H, W) int32;
+    the triples are None without with_sub.  One launch for all N frames:
+    the kernel walks the N * H * W pixels as one flat run."""
+    if s.dtype not in (torch.int16, torch.int32) or s.dim() not in (3, 4):
+        raise TypeError("extract_flow takes an (H, W, D) or (N, H, W, D) "
+                        "int16/int32 S")
+    w, nd = s.shape[-2:]
+    rows = s.shape[:-2].numel()  # N * H
     if label_ext < 3 or nl != label_ext ** 2 or nl > min(nd, 255):
         raise ValueError(f"extract_flow needs label_ext >= 3 and nl = "
                          f"label_ext^2 <= min(D, 255), got label_ext "
@@ -216,16 +222,19 @@ def extract_flow(s: torch.Tensor, nl: int, label_ext: int,
     if s.device.type != "cuda":
         raise ValueError(f"extract_flow: unsupported device {s.device}")
     check_flow_kernel_input(s)
+    if rows > MAX_ROWS:
+        raise ValueError(f"extract_flow kernel takes fewer than 2^31 rows "
+                         f"N * H, got {rows}")
     # one allocation for the planes (a launch's host time counts at a frame)
-    outs = torch.empty((7 if with_sub else 1, h, w), dtype=torch.int32,
-                       device=s.device).unbind(0)
+    outs = torch.empty((7 if with_sub else 1,) + s.shape[:-1],
+                       dtype=torch.int32, device=s.device).unbind(0)
     if s.numel() > 0:
         ptrs = [o.data_ptr() for o in outs]
         ptrs += [ptrs[0]] * (7 - len(ptrs))  # never written without with_sub
         fn = _build.load("extract_flow")
         with _build.on_device(s):
-            err = fn(s.data_ptr(), int(s.dtype == torch.int32), *ptrs, h, w,
-                     nd, nl, label_ext, int(with_sub), _build.stream_of(s))
+            err = fn(s.data_ptr(), int(s.dtype == torch.int32), *ptrs, rows,
+                     w, nd, nl, label_ext, int(with_sub), _build.stream_of(s))
         _build.check(err, "extract_flow")
         _build.LAUNCHES["extract_flow"] += 1
     if not with_sub:

@@ -19,8 +19,8 @@ that holds several tiles builds them once.  The pyramid runs per tile, so
 H must divide by tiles_y * 2^(levels-1).  The forward-backward check
 gathers the backward field and checks each tile's rows in global rows;
 every ``fb_backward`` mode runs as in models/flow.py.  The frames of a
-shard run one after another (the flow kernels K4 and K5 take one frame);
-a chain of one row tile is flow_fsgm itself.
+shard run one after another; a chain of one row tile is flow_fsgm itself
+(each level's forward and backward passes in lockstep).
 
 One fault of the reference is refused instead of copied: it always checks
 on the full grid, also under ``fb_grid="half"``; the port raises where

@@ -6,7 +6,7 @@ benches (utils/k13_bench.py, utils/k4_bench.py).
     caller waits for, the wrapper's host work included where it outlasts
     the kernel;
   * ``device_profile`` / ``device_ms``: torch.profiler's device time of one
-    call, the kernels' own.
+    call, the kernels' own, or None where no profile recorded a launch.
 
 The module imports nothing of the package, so that a bench run on another
 tree of the port (``--root``) loads this file from its own tree by its
@@ -14,6 +14,10 @@ path and times both trees with the same code.
 """
 
 from __future__ import annotations
+
+# Profiles taken before device_profile gives up: on the card a whole
+# torch.profiler profile now and then records no device launch at all.
+PROFILE_ATTEMPTS = 3
 
 
 def median_ms(fn, reps: int = 10, warmup: int = 2, inner: int = 1) -> float:
@@ -42,24 +46,32 @@ def device_profile(fn, reps: int = 10, warmup: int = 1):
     each of its kernels once: (the sum over its kernels of their mean
     duration over ``reps`` calls, the launches the profile recorded a call,
     the kernels' names).  The mean is over the recorded launches: a
-    profile may miss some."""
+    profile may miss some, and one that records none is taken again, up
+    to PROFILE_ATTEMPTS profiles ((None, 0.0, []) if none recorded one:
+    no time was measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.count]
+    rows = []
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count]
+        if rows:
+            break
+    if not rows:
+        return None, 0.0, []
     return (sum(e.self_device_time_total / e.count for e in rows) / 1e3,
             sum(e.count for e in rows) / reps,
             sorted({e.key[:60] for e in rows}))
 
 
-def device_ms(fn, reps: int = 10, warmup: int = 1) -> float:
-    """device_profile's device ms of one fn() call."""
+def device_ms(fn, reps: int = 10, warmup: int = 1) -> float | None:
+    """device_profile's device ms of one fn() call (None: not recorded)."""
     return device_profile(fn, reps, warmup)[0]

@@ -9,9 +9,10 @@
 pairs (seeds seed .. seed + B - 1; B = 1 is stereo_sgm) of the given size at
 the preset's D (default preset configs/kitti_stereo.json) in one call, and
 every number below is per frame, i.e. per call divided by B.
-``--pipeline flow`` runs flow_fsgm on a
-blockwise_flow_pair of that size with motion up to 8 px (default preset
-configs/kitti_flow.json).  ``--pipeline tiled`` runs stereo_sgm_sharded on
+``--pipeline flow`` runs flow_fsgm_batch on B blockwise_flow_pairs of that
+size with motion up to 8 px (seeds seed .. seed + B - 1; B = 1 is
+flow_fsgm; default preset configs/kitti_flow.json) in one call, numbers
+per frame.  ``--pipeline tiled`` runs stereo_sgm_sharded on
 B random-dot pairs with the preset's distribution (default
 configs/tiled_4k.json, config 5; ``--tile-mode`` overrides its mode), every
 tile on the card, numbers per frame.  Each runs ``warmup`` calls first,
@@ -56,7 +57,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from fsgm_tpu_torch.io import blockwise_flow_pair, random_dot_stereo
-from fsgm_tpu_torch.models.flow import flow_fsgm
+from fsgm_tpu_torch.models.flow import flow_fsgm, flow_fsgm_batch
 from fsgm_tpu_torch.models.stereo import stereo_sgm_batch
 from fsgm_tpu_torch.params import (DistParams, FlowParams, SGMParams,
                                    load_preset)
@@ -268,12 +269,16 @@ def profile_tiled(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
 
 def profile_flow(img1: torch.Tensor, img2: torch.Tensor, params: FlowParams,
                  calls: int = 10, warmup: int = 3) -> dict:
-    """The breakdown record of flow_fsgm(img1, img2, params); the device is
-    the images'."""
-    rec = profile_frames(lambda: flow_fsgm(img1, img2, params),
-                         img1.device, calls, warmup)
-    return {"pipeline": "flow", "shape": [*img1.shape, params.num_labels],
-            **rec}
+    """The per-frame breakdown record of flow_fsgm_batch(img1, img2,
+    params) over (B, H, W) pairs in one pass, or of flow_fsgm on one (H, W)
+    pair as a batch of 1; the device is the images'."""
+    if img1.dim() == 2:
+        b, frame = 1, lambda: flow_fsgm(img1, img2, params)
+    else:
+        b, frame = img1.shape[0], lambda: flow_fsgm_batch(img1, img2, params)
+    rec = profile_frames(frame, img1.device, calls, warmup, b)
+    return {"pipeline": "flow", "batch": b,
+            "shape": [*img1.shape[-2:], params.num_labels], **rec}
 
 
 def main(argv=None) -> int:
@@ -283,8 +288,8 @@ def main(argv=None) -> int:
                     "kitti_flow.json or tiled_4k.json by pipeline")
     ap.add_argument("--height", type=int, default=375)
     ap.add_argument("--width", type=int, default=1242)
-    ap.add_argument("--batch", type=int, default=1, help="stereo, tiled: B "
-                    "frames per call (numbers per frame)")
+    ap.add_argument("--batch", type=int, default=1, help="B frames per "
+                    "call (numbers per frame)")
     ap.add_argument("--tile-mode", choices=["fast", "exact"],
                     help="tiled: instead of the preset's tile_mode")
     ap.add_argument("--calls", type=int, default=10)
@@ -296,9 +301,8 @@ def main(argv=None) -> int:
         raise SystemExit("--device cuda: no CUDA device is available")
     dev = torch.device(args.device)
     preset = load_preset(args.preset or str(PRESETS[args.pipeline]))
-    if args.batch < 1 or (args.batch > 1 and args.pipeline == "flow"):
-        raise SystemExit("--batch B takes B >= 1, and B > 1 only with the "
-                         "stereo and tiled pipelines")
+    if args.batch < 1:
+        raise SystemExit("--batch B takes B >= 1")
     if args.pipeline in ("stereo", "tiled"):
         params = preset["sgm"]
         pairs = [random_dot_stereo(args.height, args.width, params.max_disp,
@@ -316,8 +320,13 @@ def main(argv=None) -> int:
                 return profile_tiled(il, ir, params, dist, calls, warmup)
     else:
         params = preset["flow"]
-        a, b, _, _ = blockwise_flow_pair(args.height, args.width,
-                                         FLOW_MAX_MAG, seed=args.seed)
+        pairs = [blockwise_flow_pair(args.height, args.width, FLOW_MAX_MAG,
+                                     seed=args.seed + k)
+                 for k in range(args.batch)]
+        a = np.stack([p[0] for p in pairs])
+        b = np.stack([p[1] for p in pairs])
+        if args.batch == 1:
+            a, b = a[0], b[0]
         run = profile_flow
     rec = run(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
               params, args.calls, args.warmup)

@@ -191,11 +191,12 @@ def test_plain_matches_numpy_at_ragged_widths(nl):
 
 
 def test_k5_refusals():
-    """Another dtype or rank raises TypeError on any device; a device that
-    is neither the CPU nor CUDA raises ValueError (no plain fallback)."""
+    """Another dtype or rank (3 or 4 dims: a frame axis) raises TypeError on
+    any device; a device that is neither the CPU nor CUDA raises ValueError
+    (no plain fallback)."""
     for bad in (torch.zeros((2, 16, 4), dtype=torch.int16),
                 torch.zeros((16, 4), dtype=torch.uint8),
-                torch.zeros((1, 2, 16, 4), dtype=torch.uint8),
+                torch.zeros((1, 1, 2, 16, 4), dtype=torch.uint8),
                 torch.zeros((2, 16, 4), dtype=torch.int8, device="meta")):
         with pytest.raises(TypeError, match="uint8"):
             transpose.label_minor_from_major(bad)

@@ -5,7 +5,8 @@ test_torch_reagg.py).
   * the CLI on the CPU: stereo with --lr-mode / --fill-invalid, batch with
     --dispatch-batch, a --fault-inject run in a subprocess (exit 17) and
     the resume that skips the done frames, serve with every task,
-    --pipeline, a malformed line and a failing write, demo and eval.
+    --pipeline, a malformed line and a failing write, a flow_batch request
+    larger than one pass, demo and eval.
 """
 
 import io as pyio
@@ -141,6 +142,45 @@ def test_cli_serve_every_task_on_cpu(tmp_path, monkeypatch, capsys):
                                   for d in want]
     assert (tmp_path / "f.flo").exists() and (tmp_path / "fb.png").exists()
     assert 0 < resp[3]["valid_frac"] <= 1 and len(resp[5]["valid_frac"]) == 1
+
+
+def test_cli_serve_flow_batch_larger_than_one_pass(tmp_path, monkeypatch,
+                                                  capsys):
+    """A flow_batch request of more frames than the card's free memory
+    holds in one pass runs in passes (chunk=None), each frame equal to
+    per-frame flow_fsgm: the free memory is set to 2.5 frames' worth."""
+    from fsgm_tpu_torch import FlowParams, flow_fsgm
+    from fsgm_tpu_torch.models import flow as tflow
+    h, w, n = 24, 32, 4
+    fp = FlowParams(search_radius=2, levels=2)
+    frame = h * w * fp.num_labels * tflow._FRAME_BYTES_PER_LABEL_PIXEL
+    monkeypatch.setattr(tflow, "_free_bytes", lambda dev: frame * 5 // 2)
+    passes = []
+    flow_pass = tflow._flow
+
+    def counted(imgs1, *args, **kw):
+        passes.append(imgs1.shape[0])
+        return flow_pass(imgs1, *args, **kw)
+
+    monkeypatch.setattr(tflow, "_flow", counted)
+    pairs, want = [], []
+    for k in range(n):
+        a, b, _ = io.constant_flow_pair(h, w, 1 + k % 2, -1, seed=40 + k)
+        f1, f2 = tmp_path / f"a{k}.png", tmp_path / f"b{k}.png"
+        io.save_gray(f1, a)
+        io.save_gray(f2, b)
+        pairs.append([str(f1), str(f2), str(tmp_path / f"o{k}.flo")])
+        want.append(flow_fsgm(_t(a), _t(b), fp))
+    passes.clear()
+    out = _serve(monkeypatch, capsys,
+                 [{"task": "flow_batch", "id": "fb", "pairs": pairs}],
+                 "--search-radius", "2", "--levels", "2")
+    assert passes == [2, 2] and out[-1] == {"served": 1}
+    assert out[1]["outs"] == [q[2] for q in pairs]
+    for (_, _, o), (f, v), vf in zip(pairs, want, out[1]["valid_frac"]):
+        want_flo = np.where(v.numpy()[..., None], f.numpy(), 0)
+        np.testing.assert_array_equal(io.read_flo(o), want_flo)
+        assert vf == round(float(v.numpy().mean()), 4)
 
 
 def test_cli_serve_refuses_a_preset_without_parameters(tmp_path):
