@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
-Eight main paths, three entry points and two paths across ranks: stereo
+Nine main paths, three entry points and two paths across ranks: stereo
 (configs/kitti_stereo.json, 375x1242, D=128), fSGM flow
 (configs/kitti_flow.json, 375x1242, 4 levels, 81 labels; flow_fsgm, each
 level's forward and backward passes as one launch set), batched flow
@@ -10,8 +10,10 @@ level's forward and backward passes as one launch set), batched flow
 batched stereo
 (stereo_sgm_batch, 16 frames of config 2 in one pass), tiled stereo
 (stereo_sgm_sharded at config 5, configs/tiled_4k.json: 2 frames of
-2160x3840, D=128, 2 frame shards x 4 row tiles, fast mode) and tiled flow
-(flow_fsgm_sharded, config 4 at 4K with 5 levels, 3 row tiles); the bench
+2160x3840, D=128, 2 frame shards x 4 row tiles, fast mode), tiled flow
+(flow_fsgm_sharded, config 4 at 4K with 5 levels, 3 row tiles) and the
+tiled flow's frame pass (the same over 2 frames in one pass:
+"flow_tiled_batch", phase 13); the bench
 (fsgm_tpu_torch/bench.py: bench.py's six cells), `cli video` and `cli
 kitti` (phase 10); config 5 with its 2 frame shards on 2 torch.distributed
 ranks ("multiproc") and config 4 flow frames on 2 ranks ("multiproc_flow";
@@ -181,7 +183,23 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
      at B = 1 and B = 8: wall and busy ms, busy share, device launches and
      kernel-wrapper launches a frame, peak memory; (e) `cli serve` with
      the flow preset: a flow_batch request over 2 pairs and a flow request,
-     the .flo files equal to flow_fsgm.
+     the .flo files equal to flow_fsgm;
+ 13. the tiled flow's frame axis (parallel/tiled_flow.py: a shard's frames
+     as one pass through the row-tile chain, both passes of a level in
+     lockstep): (a) the 4K flow leg over 2 frames (seeds 0, 1) at 3 row
+     tiles, exact, in one pass (chunk=2), each frame equal bit for bit to
+     flow_fsgm, its launches held to one pass's plan (tiled_flow_launches:
+     15 K5, 120 K2, 15 K4 a call; the flow_tiled_batch path; phase 8(e)'s
+     one-frame call is held to the same plan); (b) K5, K2 with carry and
+     the 2D rule and K4 against their plain versions on those 2 frames'
+     level-0 tile 1 as one (2, ...) stack; (c) config 4 on 8 frames as 2
+     frame shards of one row tile, each shard equal bit for bit to
+     flow_fsgm_batch, launches held to 2 x its plan; (d) 4 config-4 flow
+     frames on 2 ranks sharing this card, 2 frames a rank, equal to the
+     single-process flow_fsgm_sharded, launches summed over the ranks held
+     to 2 x flow_fsgm_batch's plan over 2 frames; (e) CUDA-event ms per
+     frame and peak MiB of (a) at N = 1 and 2 frames a pass, and the pass
+     size chunk=None takes for 2 4K frames on this card.
 
 Each kernel's bound_ms is the larger of two times for this run's shapes:
 the bytes it must move (each input read once, each output written once;
@@ -257,7 +275,7 @@ SOURCES = {
                   ["fsgm_tpu/ops/pallas/aggregate_pallas.py:297",
                    "fsgm_tpu/ops/pallas/aggregate_pallas.py:420"],
                   ("stereo_batch", "stereo", "stereo_tiled", "flow_tiled",
-                   "bench", "kitti", "multiproc")),
+                   "flow_tiled_batch", "bench", "kitti", "multiproc")),
     "sgm_sweep_family": ("sgm_sweep",
                          "fsgm_tpu/ops/pallas/aggregate_tr.py:451",
                          ["tools/trexp.py:102"],
@@ -272,12 +290,13 @@ SOURCES = {
                    "tools/strideroll_probe.py:59",
                    "tests/unit/test_property.py:142"], ()),
     "extract_flow": ("extract_flow", "fsgm_tpu/ops/pallas/extract_tr.py:387",
-                     None, ("flow", "flow_batch", "flow_tiled", "bench",
-                            "video", "kitti", "multiproc_flow")),
+                     None, ("flow", "flow_batch", "flow_tiled",
+                            "flow_tiled_batch", "bench", "video", "kitti",
+                            "multiproc_flow")),
     "label_minor_from_major": (
         "transpose", "fsgm_tpu/ops/pallas/transpose_pallas.py:83", None,
-        ("flow", "flow_batch", "flow_tiled", "bench", "video", "kitti",
-         "multiproc_flow")),
+        ("flow", "flow_batch", "flow_tiled", "flow_tiled_batch", "bench",
+         "video", "kitti", "multiproc_flow")),
     "min16_probe": ("min16_probe", "tools/tr_int16_probe.py:41", None, ()),
 }
 PROBE_SHAPE = (376, 1280, 128)  # tools/strideroll_probe.py's H, W, L
@@ -297,6 +316,8 @@ UHD_K5_FRAMES = 3       # 4K level-0 label-major costs in one K5 (> 2^31 B)
 UHD_K4_FRAMES = 2       # 4K level-0 int16 S in one K4
 MODES_HW = (96, 128)    # phase 12's fb_backward x fb_grid frames
 MODES_FRAMES = 3
+UHD_FLOW_FRAMES = 2     # 4K flow frames of phase 13's tiled pass
+SHARD_FRAMES = 2        # config-4 flow frames a shard (rank) in phase 13
 
 
 def ptxas_record() -> dict:
@@ -723,12 +744,13 @@ def check_cli(params, dev) -> None:
           f"outputs == stereo_sgm within {worst} (PNG step 1/256)")
 
 
-def flow_level(hw, params, dev, frames: int | None = None) -> dict:
+def flow_level(hw, params, dev, frames: int | None = None,
+               seed: int = SEED) -> dict:
     """One flow level as the main path builds it, on a blockwise pair with a
     non-zero prior (the ground truth, rounded, plus integer noise in
     [-2, 2] from the seed): census, label-major cost padded to a multiple
     of 32, and the P2' tables of the 8 directions.  With ``frames``, that
-    many pairs (seeds SEED ... SEED + frames - 1) stacked on a leading
+    many pairs (seeds seed ... seed + frames - 1) stacked on a leading
     axis, as the batched path builds a level over its slices."""
     from fsgm_tpu_torch.ops.census import census_transform
     from fsgm_tpu_torch.ops.cost import cost_volume_flow_major
@@ -737,9 +759,9 @@ def flow_level(hw, params, dev, frames: int | None = None) -> dict:
 
     h, w = hw
     got = []
-    for seed in range(SEED, SEED + (frames or 1)):
-        t1, t2, gt, _ = flow_pair(h, w, seed, dev)
-        rng = np.random.default_rng(seed)
+    for k in range(seed, seed + (frames or 1)):
+        t1, t2, gt, _ = flow_pair(h, w, k, dev)
+        rng = np.random.default_rng(k)
         prior = np.rint(gt) + rng.integers(-2, 3, gt.shape)
         got.append((t1, t2) + tuple(
             torch.from_numpy(prior[..., k].astype(np.int32)).to(dev)
@@ -1060,20 +1082,33 @@ def uhd_flow(dev):
     return fp, f1, f2, DistParams(tiles_y=3)
 
 
-def check_uhd_flow_tile(dev) -> dict:
+def check_uhd_flow_tile(dev, frames: int | None = None) -> dict:
     """8(e) kernels at the tiled flow path's largest shape: K5, K2 with the
     2D rule and carries, and K4 against their plain versions on level-0
     tile 1 of the 4K flow leg (rows 720..1439 of 2160x3840, 81 labels in
     96 slots, non-zero prior), the carries from the tiles above (down) and
-    below (up); the largest absolute error per kernel (all must be 0)."""
+    below (up); the largest absolute error per kernel (all must be 0).
+    13(b): with ``frames``, the tile of that many frames (seeds SEED ...)
+    as one (N, ...) stack, as the tiled pass runs it (each frame's level
+    built on its own: one 4K cost build's temporaries are ~27 GB)."""
     from fsgm_tpu_torch.ops.kernels import aggregate as agg
     from fsgm_tpu_torch.ops.kernels import transpose
     fp, _, _, dist = uhd_flow(dev)
-    lv = flow_level(UHD[:2], fp, dev)
+    if frames:
+        lvs = [flow_level(UHD[:2], fp, dev, seed=SEED + k)
+               for k in range(frames)]
+        lv = dict(lvs[0], img=torch.stack([x["img"] for x in lvs]),
+                  cost_m=torch.stack([x.pop("cost_m") for x in lvs]),
+                  p2es=[torch.stack(t) for t in zip(*(x["p2es"]
+                                                      for x in lvs))])
+        del lvs
+    else:
+        lv = flow_level(UHD[:2], fp, dev)
     ht = UHD[0] // dist.tiles_y
     lo, hi = ht, 2 * ht
-    tag = f"4K flow level-0 tile rows {lo}..{hi - 1}"
-    tile_m = lv["cost_m"][lo:hi].contiguous()
+    tag = f"4K flow level-0 tile rows {lo}..{hi - 1}" + (
+        f" of {frames} frames" if frames else "")
+    tile_m = lv["cost_m"][..., lo:hi, :, :].contiguous()
     c_tile = transpose.label_minor_from_major(tile_m)
     errs = {"label_minor_from_major": max_err(
         c_tile, transpose.label_minor_from_major_plain(tile_m))}
@@ -1087,7 +1122,8 @@ def check_uhd_flow_tile(dev) -> dict:
     del c
     for r, p2e in zip(lv["dirs"], lv["p2es"]):
         if r[0] == 0:
-            s = agg.sgm_sweep(c_tile, p2e[lo:hi].contiguous(), r, lv["p1"],
+            s = agg.sgm_sweep(c_tile, p2e[..., lo:hi, :].contiguous(), r,
+                              lv["p1"],
                               s=s, s_dtype=lv["s_dtype"], label_ext=lv["e"],
                               nl=lv["nl"], p2_max=lv["p2_max"])
     errs["extract_flow"] = k4_err(s, lv["nl"], lv["e"], tag)
@@ -1096,27 +1132,57 @@ def check_uhd_flow_tile(dev) -> dict:
     return errs
 
 
-def check_uhd_flow(dev) -> dict:
+def tiled_flow_launches(fparams, tiles: int) -> dict:
+    """{kernel: launches} of one pass of flow_fsgm_sharded in exact mode on
+    a chain of ``tiles`` row tiles, whatever its frame count: on each tile
+    one K5, 8 sgm_sweep launches (the two horizontal directions, and the
+    three of each vertical family with its carry) and one K4 a level-pass;
+    the level-passes as flow_launches counts them (a level's forward and
+    backward passes are one, "single" adds its backward level, the last
+    level of "cheap" extracts each half apart)."""
+    mode = fparams.fb_backward if fparams.fb_check else None
+    passes = fparams.levels + (mode == "single")
+    split = mode == "cheap" and (fparams.subpixel or fparams.median_filter)
+    return {"label_minor_from_major": tiles * passes,
+            "sgm_sweep": 8 * tiles * passes,
+            "extract_flow": tiles * (passes + split)}
+
+
+def uhd_flow_frames(dev, frames: int):
+    """``frames`` 4K flow pairs (seeds SEED ...) stacked: (N, H, W) each."""
+    return (torch.stack(x) for x in zip(*[
+        flow_pair(UHD[0], UHD[1], SEED + k, dev)[:2]
+        for k in range(frames)]))
+
+
+def check_uhd_flow(dev, frames: int = 1) -> dict:
     """8(e): the 4K flow leg tiled (exact) against flow_fsgm; the tiled
-    flow path's launches."""
+    flow path's launches, held to one pass's plan (tiled_flow_launches).
+    13(a): ``frames`` frames in one pass (chunk=frames: chunk=None
+    reckons one 4K frame a pass on an 80 GB card), each frame bit for bit
+    flow_fsgm, the launches those of one pass: the flow_tiled_batch
+    path."""
     from fsgm_tpu_torch import flow_fsgm, flow_fsgm_sharded
-    from fsgm_tpu_torch.ops.kernels import _build
-    fp, f1, f2, dist = uhd_flow(dev)
-    want, want_valid = flow_fsgm(f1, f2, fp)
+    fp, _, _, dist = uhd_flow(dev)
+    i1, i2 = uhd_flow_frames(dev, frames)
     counters = {}
-    _build.LAUNCHES.clear()
-    got, valid = flow_fsgm_sharded(f1[None], f2[None], fp, dist,
-                                   counters=counters)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    print(f"launches in one flow_fsgm_sharded call (4K, {dist}): "
-          f"{launches}; bytes handed between tiles {counters['bytes']}")
-    require(torch.equal(got[0], want) and torch.equal(valid[0], want_valid),
-            "4K tiled flow != flow_fsgm")
+    (got, valid), launches = counted(lambda: flow_fsgm_sharded(
+        i1, i2, fp, dist, counters=counters, chunk=frames))
+    print(f"launches in one flow_fsgm_sharded call (4K, {frames} frames, "
+          f"{dist}): {launches}; bytes handed between tiles "
+          f"{counters['bytes']}")
+    want_n = tiled_flow_launches(fp, dist.tiles_y)
+    require(launches == want_n, f"4K tiled flow x {frames} launches "
+            f"{launches} != one pass's plan {want_n}")
+    for k in range(frames):
+        want, want_valid = flow_fsgm(i1[k], i2[k], fp)
+        require(torch.equal(got[k], want)
+                and torch.equal(valid[k], want_valid),
+                f"4K tiled flow frame {k} of {frames} != flow_fsgm")
     require(bool(valid.any()), "4K tiled flow: no valid pixel")
-    print(f"4K flow tiled (3 row tiles, exact, {fp.levels} levels) == "
-          f"flow_fsgm bit for bit; valid share "
-          f"{float(valid.float().mean()):.4f}")
+    print(f"4K flow tiled (3 row tiles, exact, {fp.levels} levels, {frames} "
+          f"frames a pass) == flow_fsgm bit for bit; launches == one pass's "
+          f"plan; valid share {float(valid.float().mean()):.4f}")
     return launches
 
 
@@ -2510,6 +2576,87 @@ def check_serve_flow(dev) -> None:
           f"== flow_fsgm, valid shares equal")
 
 
+def check_flow_shards(fparams, dev) -> None:
+    """13(c): config 4 on FLOW_BATCH frames as 2 frame shards of one row
+    tile: each shard equal bit for bit to flow_fsgm_batch over its frames,
+    the launches to 2 x flow_fsgm_batch's plan over a shard's frames."""
+    from fsgm_tpu_torch import DistParams, flow_fsgm_batch, flow_fsgm_sharded
+    i1, i2 = (torch.stack(x) for x in zip(*[
+        flow_pair(*FLOW_HW, SEED + k, dev)[:2] for k in range(FLOW_BATCH)]))
+    fl = FLOW_BATCH // 2
+    (got, valid), launches = counted(lambda: flow_fsgm_sharded(
+        i1, i2, fparams, DistParams(frame_shards=2)))
+    want_n = {k: 2 * n for k, n in flow_launches(i1[0], fparams, dev,
+                                                 fl).items()}
+    require(launches == want_n, f"2 shards x 1 tile launches {launches} != "
+            f"2 x flow_fsgm_batch's plan {want_n}")
+    for a in range(2):
+        shard = slice(a * fl, (a + 1) * fl)
+        want, want_valid = flow_fsgm_batch(i1[shard], i2[shard], fparams)
+        require(torch.equal(got[shard], want)
+                and torch.equal(valid[shard], want_valid),
+                f"config-4 shard {a} != flow_fsgm_batch")
+    print(f"config 4, {FLOW_BATCH} frames on 2 shards x 1 row tile == "
+          f"flow_fsgm_batch on each shard bit for bit; launches {launches}")
+
+
+def check_multiproc_flow_batch(fparams, dev) -> dict:
+    """13(d): RANKS x SHARD_FRAMES config-4 flow frames on RANKS ranks
+    sharing this card (one shard of SHARD_FRAMES frames a rank, one row
+    tile) equal bit for bit to the single-process flow_fsgm_sharded; the
+    launches, summed over the ranks, held to RANKS x flow_fsgm_batch's plan
+    over SHARD_FRAMES frames."""
+    from fsgm_tpu_torch import DistParams, flow_fsgm_sharded
+    n = RANKS * SHARD_FRAMES
+    i1, i2 = (torch.stack(x) for x in zip(*[
+        flow_pair(*FLOW_HW, SEED + k, dev)[:2] for k in range(n)]))
+    dist = DistParams(frame_shards=RANKS)
+    tag = f"config 4 flow, {SHARD_FRAMES} frames a rank"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        reports = on_ranks([rank_run("flow", fparams, dist, i1, i2, tmp,
+                                     "c4b")], "cuda", [tag])
+        with np.load(tmp / "c4b_out.npz") as z:
+            got, got_valid = z["out"], z["valid"]
+    want, want_valid = flow_fsgm_sharded(i1, i2, fparams, dist)
+    require(np.array_equal(got, want.cpu().numpy())
+            and np.array_equal(got_valid, want_valid.cpu().numpy()),
+            f"{tag} across ranks != single-process flow_fsgm_sharded")
+    launches = rank_launches(reports, 0)
+    want_n = {k: RANKS * c for k, c in flow_launches(
+        i1[0], fparams, dev, SHARD_FRAMES).items()}
+    require(launches == want_n, f"{tag}: launches {launches} != {want_n}")
+    print(f"{tag} on {RANKS} ranks == flow_fsgm_sharded in one process, bit "
+          f"for bit; launches summed over the ranks {launches}")
+    return launches
+
+
+def time_tiled_flow_batch(dev, card_line: str) -> dict:
+    """13(e): CUDA-event ms per frame and peak MiB of the 4K flow leg at 3
+    row tiles over N = 1 and UHD_FLOW_FRAMES frames a pass, and the pass
+    size chunk=None takes for UHD_FLOW_FRAMES frames on this card."""
+    from fsgm_tpu_torch import flow_fsgm_sharded
+    from fsgm_tpu_torch.models.flow import _free_bytes
+    from fsgm_tpu_torch.parallel import tiled_flow
+    fp, _, _, dist = uhd_flow(dev)
+    i1, i2 = uhd_flow_frames(dev, UHD_FLOW_FRAMES)
+    out = {}
+    for n in sorted({1, UHD_FLOW_FRAMES}):
+        out[n] = time_peak(lambda: flow_fsgm_sharded(
+            i1[:n], i2[:n], fp, dist, chunk=n), n)
+        print(f"time flow_tiled_batch (4K flow, {fp.levels} levels, 3 row "
+              f"tiles, {n} frames a pass): {out[n]['ms']:.4f} ms/frame, "
+              f"peak {out[n]['peak_mib']:.1f} MiB ({card_line})")
+    torch.cuda.empty_cache()
+    chosen = tiled_flow._frames_a_pass([dev] * dist.tiles_y,
+                                       UHD_FLOW_FRAMES, *UHD[:2], fp)
+    free = _free_bytes(dev) / 2 ** 30
+    print(f"flow_fsgm_sharded chunk=None: {chosen} of {UHD_FLOW_FRAMES} 4K "
+          f"frames a pass on 3 row tiles of this card ({free:.1f} GiB "
+          f"free)")
+    return dict(per_frame=out, chunk_none=chosen, free_gib=free)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2879,6 +3026,21 @@ def main() -> int:
     print(f"flow per frame, B=1 vs B={FLOW_BATCH}: "
           f"{json.dumps(flow_per_frame)} ({card_line})")
     print(f"phase 12: {time.perf_counter() - t12:.2f} s")
+
+    # 13. the tiled flow's frame axis: the 4K leg over 2 frames in one
+    #     pass (launches counted in its call only), K2 with carry over the
+    #     2 frames' tile, shards of one tile, 2 frames a rank, timings
+    t13 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches["flow_tiled_batch"] = check_uhd_flow(dev, UHD_FLOW_FRAMES)
+    errs = merge_errs(errs, check_uhd_flow_tile(dev, UHD_FLOW_FRAMES))
+    torch.cuda.empty_cache()
+    check_flow_shards(fparams, dev)
+    check_multiproc_flow_batch(fparams, dev)
+    tiled_flow_times = time_tiled_flow_batch(dev, card_line)
+    print(f"tiled flow per frame, N=1 vs N={UHD_FLOW_FRAMES}: "
+          f"{json.dumps(tiled_flow_times)} ({card_line})")
+    print(f"phase 13: {time.perf_counter() - t13:.2f} s")
 
     times["sgm_sweep_family"] = {k: vtimes["family"][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -132,11 +132,13 @@ def exchange_row_halo(tiles: Sequence[torch.Tensor], halo: int,
     return out
 
 
-def gather_rows(tiles: Sequence[torch.Tensor], counters: dict | None
-                ) -> list[torch.Tensor]:
-    """The whole (H, ...) array for every row tile, on the tile's device
-    (all_gather); the pieces of the other tiles are counted as handed,
-    however many tiles share a device, and a device builds its copy once."""
+def gather_rows(tiles: Sequence[torch.Tensor], counters: dict | None,
+                dim: int = -2) -> list[torch.Tensor]:
+    """The whole array for every row tile, the tiles joined along their
+    row axis ``dim`` (-2 for (..., Ht, W) images, -3 for (..., Ht, W, 2)
+    flow), on the tile's device (all_gather); the pieces of the other tiles
+    are counted as handed, however many tiles share a device, and a device
+    builds its copy once."""
     full = {}
     out = []
     for k, x in enumerate(tiles):
@@ -144,7 +146,7 @@ def gather_rows(tiles: Sequence[torch.Tensor], counters: dict | None
             if j != k:
                 count_bytes(counters, "gather", y)
         if x.device not in full:
-            full[x.device] = torch.cat([y.to(x.device) for y in tiles], 0)
+            full[x.device] = torch.cat([y.to(x.device) for y in tiles], dim)
         out.append(full[x.device])
     return out
 
