@@ -1,0 +1,10 @@
+"""cost_ms.batch (ops, device trace): device ms a frame of the activities
+launched inside the program's fsgm.cost spans, the cost build: K1 in
+stereo, the plain-torch flow cost volume in flow (benchmark/stages.py)."""
+
+from benchmark import stages
+
+
+def read(run):
+    found = stages.of(run)
+    return None if found is None else found.ms("fsgm.cost")

@@ -133,7 +133,8 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
      flow), its ms/frame, first_call_s, peak MiB, vs_SoL and guard verdict
      printed (the guard is not enforced: its verdict depends on the
      card); `python -m fsgm_tpu_torch.cli bench --config kitti` once with
-     --stages (every stage reported) and once with --trace (the trace
+     --stages (every stage span reported, with device ms on the kernel
+     stages and launches on K1-K3's) and once with --trace (the trace
      file exists) in their own processes; `video` over 4 frames of
      constant_flow_sequence(375, 1242, 3, -2) at config 4 with
      --track-levels 2 into .flo files, equal within 1e-3 (identical
@@ -2001,11 +2002,17 @@ def check_bench_cli(card_line: str) -> dict:
             if flag[0] == "--stages":
                 stages = [json.loads(x) for x in proc.stderr.splitlines()
                           if x.startswith('{"stage"')]
-                require([r["stage"] for r in stages] == [
-                    "census_cost", "agg_down", "agg_up", "agg_cols",
-                    "extract"] and all(r["wall_s"] > 0 and r["bytes"] > 0
-                                       for r in stages),
-                    f"stages {stages}")
+                by = {r["stage"]: r for r in stages}
+                require(list(by) == [
+                    "fsgm.stereo", "fsgm.census", "fsgm.cost",
+                    "fsgm.aggregate", "fsgm.aggregate.group",
+                    "fsgm.extract", "fsgm.tail", "fsgm.median"]
+                    and all(by[k]["device_ms"] > 0 for k in (
+                        "fsgm.census", "fsgm.cost", "fsgm.aggregate.group",
+                        "fsgm.extract", "fsgm.median"))
+                    and all(by[k]["launches"] > 0 for k in (
+                        "fsgm.cost", "fsgm.aggregate.group",
+                        "fsgm.extract")), f"stages {stages}")
                 for r in stages:
                     print(f"stage {json.dumps(r)} ({card_line})")
                 out["stages"] = stages

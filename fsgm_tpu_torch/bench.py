@@ -36,14 +36,12 @@ vs_SoL (stereo cells only): the least time of sgm_bytes_model's bytes
 card has no listed peak.  Flow has no bytes model yet, so its cells print
 no vs_SoL.
 
---stages (stereo cells): per-stage times by CUDA events over STAGE_ITERS
-repetitions of the cell's call, each stage the code the pipeline runs for
-it: census_cost (census of both views and K1), agg_down / agg_up /
-agg_cols (the P2' tables and K2 launches of the directions with dy > 0,
-dy < 0 and dy = 0, launched as aggregate_paths' launch_plan launches
-them; a family launch of the dy != 0 group is the one stage agg_down_up)
-and extract (K3 and the subpixel / LR / median tail); bytes from
-sgm_bytes_model, printed as utils/profiling.py StageTimer JSONL.
+--stages: the cell's own call, STAGE_ITERS times under torch.profiler
+after one more call, and its stage spans (utils/tracing.py): one JSON line
+a span name with its calls, hand-written kernel launches and host self ms
+a frame, and on a card the device ms a frame launched inside it and not
+inside a child span (utils/profiling.py stage_rows).  The profiler's own
+cost is in the host times.
 
 --guard exits 3 when ms/frame exceeds best_ms_frame * (1 + tolerance) of
 the cell's entry in HISTORY (fsgm_tpu_torch/bench_history.json); the
@@ -64,13 +62,12 @@ import torch
 
 from fsgm_tpu_torch.io import constant_flow_pair, random_dot_stereo
 from fsgm_tpu_torch.models.flow import flow_fsgm_batch
-from fsgm_tpu_torch.models.stereo import disparity_tail, stereo_sgm_batch
-from fsgm_tpu_torch.ops.census import census_transform
+from fsgm_tpu_torch.models.stereo import stereo_sgm_batch
 from fsgm_tpu_torch.ops.kernels import aggregate as agg
-from fsgm_tpu_torch.ops.kernels import cost, extract
 from fsgm_tpu_torch.params import load_preset
-from fsgm_tpu_torch.utils.profiling import (StageTimer, hbm_peak_gbs,
-                                            sgm_bytes_model, sync, trace)
+from fsgm_tpu_torch.utils.profiling import (hbm_peak_gbs, profiled,
+                                            sgm_bytes_model, stage_rows,
+                                            sync, trace)
 
 # The prior-art anchor of BASELINE.md (Mpixel*disp/s): embedded-GPU SGM,
 # about 42 fps at 640x480, D = 128, 4 paths on a Tegra X1 (PAPERS.md,
@@ -169,95 +166,17 @@ def _inputs(cfg: str, h: int, w: int, d: int, batch: int,
             torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev))
 
 
-def _k2_launches(params, shape, dev) -> list:
-    """[(directions, family)] of each K2 launch launch_plan makes."""
-    out = []
-    for group, family in agg.launch_plan(shape, dev, params.dirs, params.p1,
-                                         params.p2, params.s_invalid):
-        out += [(group, True)] if family else [([r], False) for r in group]
-    return out
-
-
-def _bytes_model(params, shape, dev):
-    """(sgm_bytes_model of a (B, H, W, D) call as launch_plan launches K2
-    on dev, the K2 launches, S's item size)."""
+def _bytes_model(params, shape, dev) -> dict:
+    """sgm_bytes_model of a (B, H, W, D) call as launch_plan launches K2
+    on dev: a family launch moves its directions' bytes in one launch."""
     bsz, h, w, d = shape
     s_item = torch.tensor(
         [], dtype=agg.plan_dtypes(params.s_invalid)).element_size()
-    launches = _k2_launches(params, shape, dev)
-    model = sgm_bytes_model(h, w, d, len(params.dirs), s_item, bsz,
-                            [len(g) for g, _ in launches])
-    return model, launches, s_item
-
-
-def _stage_of(dirs, family: bool) -> str:
-    if dirs[0][0] == 0:
-        return "agg_cols"
-    if family:
-        return "agg_down_up"
-    return "agg_down" if dirs[0][0] > 0 else "agg_up"
-
-
-def stage_roofline(params, a: torch.Tensor, b: torch.Tensor,
-                   iters: int = STAGE_ITERS) -> StageTimer:
-    """The stereo pipeline over (B, H, W) pairs a, b split into its stages
-    (module docstring), each timed over ``iters`` runs of the whole
-    pipeline after one warm-up run, with its bytes from sgm_bytes_model."""
-    dev = a.device
-    bsz, h, w = a.shape
-    d = params.max_disp
-    model, launches, s_item = _bytes_model(params, (bsz, h, w, d), dev)
-    kw = dict(s_dtype=agg.plan_dtypes(params.s_invalid),
-              p2_max=agg.p2_bound(params.p1, params.p2))
-    clock = _Clock(dev)
-
-    def table(r):
-        return agg.p2_effective(a, r, params.p1, params.p2,
-                                params.adaptive_p2)
-
-    def run(marks: list) -> None:
-        marks.append(("", clock.mark()))
-        c = cost.census_cost(census_transform(a, params.census_window),
-                             census_transform(b, params.census_window), d,
-                             params.invalid_cost, False, params.census_bits)
-        marks.append(("census_cost", clock.mark()))
-        s = None
-        for dirs, family in launches:
-            if family:
-                s = agg.sgm_sweep_family(
-                    c, torch.stack([table(r) for r in dirs]), dirs,
-                    params.p1, s=s, **kw)
-            else:
-                s = agg.sgm_sweep(c, table(dirs[0]), dirs[0], params.p1,
-                                  s=s, **kw)
-            marks.append((_stage_of(dirs, family), clock.mark()))
-        del c
-        disparity_tail(extract.extract_stereo(
-            s, params.s_invalid, params.lr_max_diff, params.subpixel,
-            with_rwta=params.lr_check), params)
-        marks.append(("extract", clock.mark()))
-
-    run([])
-    sync(dev)
-    marks = []
-    for _ in range(iters):
-        run(marks)
-    sync(dev)
-    seconds, nbytes = {}, {}
-    for (_, t0), (name, t1) in zip(marks, marks[1:]):
-        if name:
-            seconds[name] = seconds.get(name, 0.0) + clock.seconds(t0, t1)
-    for dirs, family in launches:
-        name = _stage_of(dirs, family)
-        nbytes[name] = nbytes.get(name, 0) + sgm_bytes_model(
-            h, w, d, len(dirs), s_item, bsz, [len(dirs)])["aggregate"]
-    nbytes.update(census_cost=model["cost"], extract=model["extract"])
-    timer = StageTimer(dev)
-    for name in ("census_cost", "agg_down", "agg_up", "agg_down_up",
-                 "agg_cols", "extract"):
-        if name in seconds:
-            timer.record(name, seconds[name], nbytes[name] * iters)
-    return timer
+    launches = []
+    for group, family in agg.launch_plan(shape, dev, params.dirs, params.p1,
+                                         params.p2, params.s_invalid):
+        launches += [len(group)] if family else [1] * len(group)
+    return sgm_bytes_model(h, w, d, len(params.dirs), s_item, bsz, launches)
 
 
 def regression_guard(cfg: str, ms_frame: float) -> str | None:
@@ -333,7 +252,7 @@ def run_config(cfg: str, device="cuda", batch: int | None = None,
     vs_sol = None
     peak_gbs = hbm_peak_gbs(dev)
     if not flow and peak_gbs is not None:
-        total = _bytes_model(params, (batch, h, w, d), dev)[0]["total"]
+        total = _bytes_model(params, (batch, h, w, d), dev)["total"]
         vs_sol = total / batch / (peak_gbs * 1e9) / dt
     ctx = {"cfg": cfg, "device": str(dev),
            "card": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -362,13 +281,14 @@ def run_config(cfg: str, device="cuda", batch: int | None = None,
             run()
             sync(dev)
         print(f"# trace of one call written to {trace_dir}", file=sys.stderr)
-    if stages and not flow:
-        timer = stage_roofline(params, a, b)
-        print(f"# stage roofline ({STAGE_ITERS} runs of {batch} frames, "
-              f"modelled bytes, peak {timer.peak_gbs} GB/s):",
-              file=sys.stderr)
-        timer.print_report(file=sys.stderr)
-        ctx["stages"] = timer.report()
+    if stages:
+        run()
+        prof, recs = profiled(run, dev, STAGE_ITERS)
+        ctx["stages"] = stage_rows(prof, recs, dev, STAGE_ITERS * batch)
+        print(f"# stages ({STAGE_ITERS} calls of {batch} frames under "
+              f"torch.profiler, a frame):", file=sys.stderr)
+        for row in ctx["stages"]:
+            print(json.dumps(row), file=sys.stderr)
     return ctx
 
 
@@ -379,7 +299,7 @@ def add_arguments(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--trace", metavar="DIR",
                     help="torch.profiler Chrome trace of one call into DIR")
     ap.add_argument("--stages", action="store_true",
-                    help="per-stage roofline JSONL on stderr (stereo cells)")
+                    help="the stage spans' table on stderr")
     ap.add_argument("--guard", action="store_true",
                     help="exit 3 on a ms/frame regression against "
                     "fsgm_tpu_torch/bench_history.json")

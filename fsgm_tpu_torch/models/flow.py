@@ -46,6 +46,7 @@ from fsgm_tpu_torch.ops import extract as ext
 from fsgm_tpu_torch.ops.census import census_transform
 from fsgm_tpu_torch.ops.cost import cost_volume_flow, cost_volume_flow_major
 from fsgm_tpu_torch.ops.kernels import aggregate, extract, transpose
+from fsgm_tpu_torch.utils import tracing
 
 
 # --------------------------------------------------------------------------
@@ -65,8 +66,9 @@ def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
     """[level 0 (full resolution), level 1, ...]: ``levels`` images of
     (..., H, W)."""
     pyr = [img]
-    for _ in range(levels - 1):
-        pyr.append(downsample2x(pyr[-1]))
+    with tracing.span("fsgm.pyramid"):
+        for _ in range(levels - 1):
+            pyr.append(downsample2x(pyr[-1]))
     return pyr
 
 
@@ -165,15 +167,18 @@ def _level_s(img1, cen1, cen2, base_u, base_v, params: FlowParams,
     nl = params.num_labels
     s_max = 8 * (params.invalid_cost + params.p2)
     if plain:
-        cost = cost_volume_flow(cen1, cen2, base_u, base_v, r,
-                                params.invalid_cost)
+        with tracing.span("fsgm.cost"):
+            cost = cost_volume_flow(cen1, cen2, base_u, base_v, r,
+                                    params.invalid_cost)
         return aggregate.aggregate_paths_plain(
             cost, img1, DIRS_8, params.p1, params.p2, params.adaptive_p2,
             s_max=s_max, label_ext=e)
-    cost_m = cost_volume_flow_major(cen1, cen2, base_u, base_v, r,
-                                    params.invalid_cost,
-                                    nl_pad=-(-nl // 32) * 32)
-    cost = transpose.label_minor_from_major(cost_m)
+    with tracing.span("fsgm.cost"):
+        cost_m = cost_volume_flow_major(cen1, cen2, base_u, base_v, r,
+                                        params.invalid_cost,
+                                        nl_pad=-(-nl // 32) * 32)
+    with tracing.span("fsgm.transpose"):
+        cost = transpose.label_minor_from_major(cost_m)
     return aggregate.aggregate_paths(
         cost, img1, DIRS_8, params.p1, params.p2, params.adaptive_p2,
         s_max=s_max, label_ext=e, nl=nl)
@@ -186,17 +191,20 @@ def _level_extract(s, base_u, base_v, params: FlowParams,
     e, r = params.window_extent, params.search_radius
     extract_flow = extract.extract_flow_plain if plain \
         else extract.extract_flow
-    l_int, ut, vt = extract_flow(s, params.num_labels, e, params.subpixel)
-    iv = l_int // e
-    iu = l_int - iv * e
-    u = (base_u + (iu - r)).to(torch.float32)
-    v = (base_v + (iv - r)).to(torch.float32)
-    if params.subpixel:
-        u = u + _parabola(iu, *ut, e)
-        v = v + _parabola(iv, *vt, e)
-    if params.median_filter:
-        u, v = ext.median_filter_3x3(u), ext.median_filter_3x3(v)
-    return torch.stack([u, v], dim=-1)
+    with tracing.span("fsgm.extract"):
+        l_int, ut, vt = extract_flow(s, params.num_labels, e,
+                                     params.subpixel)
+    with tracing.span("fsgm.tail"):
+        iv = l_int // e
+        iu = l_int - iv * e
+        u = (base_u + (iu - r)).to(torch.float32)
+        v = (base_v + (iv - r)).to(torch.float32)
+        if params.subpixel:
+            u = u + _parabola(iu, *ut, e)
+            v = v + _parabola(iv, *vt, e)
+        if params.median_filter:
+            u, v = ext.median_filter_3x3(u), ext.median_filter_3x3(v)
+        return torch.stack([u, v], dim=-1)
 
 
 def _bases(prior_flow: torch.Tensor):
@@ -247,10 +255,12 @@ def _fsgm_flow_oneway(pyr1, cens1, cens2, params: FlowParams, plain: bool,
     flow = _zero_flow(pyr1[-1]) if init_flow is None else init_flow
     for lvl in range(params.levels - 1, -1, -1):
         i1 = pyr1[lvl]
-        if lvl < params.levels - 1:
-            flow = upsample_flow_2x(flow, i1.shape[-2], i1.shape[-1])
-        flow = _flow_one_level(i1, cens1[lvl], cens2[lvl], flow, params,
-                               plain)
+        with tracing.span("fsgm.level", level=lvl, slices=i1.shape[0]):
+            if lvl < params.levels - 1:
+                with tracing.span("fsgm.pyramid"):
+                    flow = upsample_flow_2x(flow, i1.shape[-2], i1.shape[-1])
+            flow = _flow_one_level(i1, cens1[lvl], cens2[lvl], flow, params,
+                                   plain)
     return flow
 
 
@@ -275,20 +285,23 @@ def _fsgm_flow_both(pyr1, pyr2, cens1, cens2, params: FlowParams,
         i1, i2 = pyr1[lvl], pyr2[lvl]
         c1, c2 = cens1[lvl], cens2[lvl]
         h, w = i1.shape[-2:]
-        if lvl < params.levels - 1:
-            flow_f = upsample_flow_2x(flow_f, h, w)
-            if lvl >= bwd_stop:
-                flow_b = upsample_flow_2x(flow_b, h, w)
-        if lvl < bwd_stop:
-            flow_f = _flow_one_level(i1, c1, c2, flow_f, params, plain)
-            continue
-        bp = bwd_final_params if lvl == bwd_stop else params
-        if plain:
-            flow_f = _flow_one_level(i1, c1, c2, flow_f, params, plain)
-            flow_b = _flow_one_level(i2, c2, c1, flow_b, bp, plain)
-        else:
-            flow_f, flow_b = _flow_level_pair(i1, i2, c1, c2, flow_f,
-                                              flow_b, params, bp)
+        with tracing.span("fsgm.level", level=lvl,
+                          slices=i1.shape[0] * (1 + (lvl >= bwd_stop))):
+            if lvl < params.levels - 1:
+                with tracing.span("fsgm.pyramid"):
+                    flow_f = upsample_flow_2x(flow_f, h, w)
+                    if lvl >= bwd_stop:
+                        flow_b = upsample_flow_2x(flow_b, h, w)
+            if lvl < bwd_stop:
+                flow_f = _flow_one_level(i1, c1, c2, flow_f, params, plain)
+                continue
+            bp = bwd_final_params if lvl == bwd_stop else params
+            if plain:
+                flow_f = _flow_one_level(i1, c1, c2, flow_f, params, plain)
+                flow_b = _flow_one_level(i2, c2, c1, flow_b, bp, plain)
+            else:
+                flow_f, flow_b = _flow_level_pair(i1, i2, c1, c2, flow_f,
+                                                  flow_b, params, bp)
     return flow_f, flow_b
 
 
@@ -320,31 +333,28 @@ def _flow(imgs1: torch.Tensor, imgs2: torch.Tensor, params: FlowParams,
     cens2 = [census_transform(x, params.census_window) for x in pyr2]
     init = None
     if prior_flow is not None:
-        init = prior_flow.to(torch.float32)
-        for _ in range(params.levels - 1):
-            init = downsample_flow_2x(init)
+        with tracing.span("fsgm.pyramid"):
+            init = prior_flow.to(torch.float32)
+            for _ in range(params.levels - 1):
+                init = downsample_flow_2x(init)
     if not params.fb_check:
         flow = _fsgm_flow_oneway(pyr1, cens1, cens2, params, plain, init)
         return flow, torch.ones(flow.shape[:-1], dtype=torch.bool,
                                 device=flow.device)
-    h, w = imgs1.shape[-2:]
+    bwd_half = params.fb_backward == "half"
     if params.fb_backward == "single":
         # one backward level at full resolution over the B frames, prior =
         # -forward flow, no subpixel or median
         flow = _fsgm_flow_oneway(pyr1, cens1, cens2, params, plain, init)
         bwd_params = dataclasses.replace(params, subpixel=False,
                                          median_filter=False)
-        flow_bwd = _flow_one_level(pyr2[0], cens2[0], cens1[0], -flow,
-                                   bwd_params, plain)
-    elif params.fb_backward == "half":
+        with tracing.span("fsgm.level", level=0, slices=flow.shape[0]):
+            flow_bwd = _flow_one_level(pyr2[0], cens2[0], cens1[0], -flow,
+                                       bwd_params, plain)
+    elif bwd_half:
         # the backward pyramid stops at level 1 (half resolution)
-        flow, bwd_half = _fsgm_flow_both(pyr1, pyr2, cens1, cens2, params,
+        flow, flow_bwd = _fsgm_flow_both(pyr1, pyr2, cens1, cens2, params,
                                          params, 1, plain, init)
-        if params.fb_grid == "half":
-            valid_h = fb_check(downsample_flow_2x(flow), bwd_half,
-                               params.fb_max_diff * 0.5)
-            return flow, upsample_valid_2x(valid_h, h, w)
-        flow_bwd = upsample_flow_2x(bwd_half, h, w)
     else:
         bwd_final = params
         if params.fb_backward == "cheap":
@@ -352,19 +362,30 @@ def _flow(imgs1: torch.Tensor, imgs2: torch.Tensor, params: FlowParams,
                                             median_filter=False)
         flow, flow_bwd = _fsgm_flow_both(pyr1, pyr2, cens1, cens2, params,
                                          bwd_final, 0, plain, init)
+    with tracing.span("fsgm.fb_check"):
+        return flow, _fb_valid(flow, flow_bwd, bwd_half, params)
+
+
+def _fb_valid(flow, flow_bwd, bwd_half: bool, params: FlowParams):
+    """The forward-backward check of (B, H, W, 2) flow against the backward
+    field (at half resolution where ``bwd_half``) on params.fb_grid."""
+    h, w = flow.shape[-3:-1]
     if params.fb_grid == "half":
-        valid_h = fb_check(downsample_flow_2x(flow),
-                           downsample_flow_2x(flow_bwd),
+        bwd_h = flow_bwd if bwd_half else downsample_flow_2x(flow_bwd)
+        valid_h = fb_check(downsample_flow_2x(flow), bwd_h,
                            params.fb_max_diff * 0.5)
-        return flow, upsample_valid_2x(valid_h, h, w)
-    return flow, fb_check(flow, flow_bwd, params.fb_max_diff)
+        return upsample_valid_2x(valid_h, h, w)
+    if bwd_half:
+        flow_bwd = upsample_flow_2x(flow_bwd, h, w)
+    return fb_check(flow, flow_bwd, params.fb_max_diff)
 
 
 def _one_frame(img1, img2, params: FlowParams, prior_flow, plain: bool):
     _check(img1, img2, prior_flow, batched=False)
-    flow, valid = _flow(img1[None], img2[None], params,
-                        None if prior_flow is None else prior_flow[None],
-                        plain)
+    with tracing.span("fsgm.flow", frames=1):
+        flow, valid = _flow(img1[None], img2[None], params,
+                            None if prior_flow is None else prior_flow[None],
+                            plain)
     return flow[0], valid[0]
 
 
@@ -429,13 +450,15 @@ def flow_fsgm_batch(imgs1: torch.Tensor, imgs2: torch.Tensor,
     b = imgs1.shape[0]
     if chunk is not None and chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    chunk = _frames_a_pass(imgs1, params) if chunk is None else min(chunk, b)
-    while b % chunk:
-        chunk -= 1
-    flows, valids = zip(*[_flow(imgs1[k:k + chunk], imgs2[k:k + chunk],
-                                params, None, plain=False)
-                          for k in range(0, b, chunk)])
-    return torch.cat(flows), torch.cat(valids)
+    with tracing.span("fsgm.flow", frames=b):
+        chunk = (_frames_a_pass(imgs1, params) if chunk is None
+                 else min(chunk, b))
+        while b % chunk:
+            chunk -= 1
+        flows, valids = zip(*[_flow(imgs1[k:k + chunk], imgs2[k:k + chunk],
+                                    params, None, plain=False)
+                              for k in range(0, b, chunk)])
+        return torch.cat(flows), torch.cat(valids)
 
 
 def flow_sequence(frames: torch.Tensor, params: FlowParams,

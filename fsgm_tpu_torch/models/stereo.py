@@ -23,6 +23,7 @@ from fsgm_tpu_torch.params import INVALID, SGMParams
 from fsgm_tpu_torch.ops import extract as ext
 from fsgm_tpu_torch.ops.census import census_transform
 from fsgm_tpu_torch.ops.kernels import aggregate, cost, extract
+from fsgm_tpu_torch.utils import tracing
 
 
 def _check(imgs_l: torch.Tensor, imgs_r: torch.Tensor, dims: int) -> None:
@@ -42,14 +43,18 @@ def _s_volume(cen_ref: torch.Tensor, cen_match: torch.Tensor,
     build_cost = cost.census_cost_plain if plain else cost.census_cost
     aggregate_paths = (aggregate.aggregate_paths_plain if plain
                        else aggregate.aggregate_paths)
-    c = build_cost(cen_ref, cen_match, params.max_disp, params.invalid_cost,
-                   right_reference, params.census_bits)
+    with tracing.span("fsgm.cost"):
+        c = build_cost(cen_ref, cen_match, params.max_disp,
+                       params.invalid_cost, right_reference,
+                       params.census_bits)
     return aggregate_paths(c, guide, params.dirs, params.p1, params.p2,
                            params.adaptive_p2, s_max=params.s_invalid)
 
 
-def _extract(plain: bool):
-    return extract.extract_stereo_plain if plain else extract.extract_stereo
+def _extract(s: torch.Tensor, params: SGMParams, plain: bool, **kw):
+    fn = extract.extract_stereo_plain if plain else extract.extract_stereo
+    with tracing.span("fsgm.extract"):
+        return fn(s, params.s_invalid, params.lr_max_diff, **kw)
 
 
 def right_disparity_reagg(cen_l: torch.Tensor, cen_r: torch.Tensor,
@@ -60,27 +65,29 @@ def right_disparity_reagg(cen_l: torch.Tensor, cen_r: torch.Tensor,
     images (K2), and its WTA (K3 without the right-view pass): (B, H, W)
     int32 right-view disparity, smallest d on ties.  S_R uses the same
     plan_dtypes(s_invalid) as the left S."""
-    s_r = _s_volume(cen_l, cen_r, imgs_r, params, plain,
-                    right_reference=True)
-    return _extract(plain)(s_r, params.s_invalid, params.lr_max_diff,
-                           with_sub=False, with_rwta=False)[0]
+    with tracing.span("fsgm.reagg"):
+        s_r = _s_volume(cen_l, cen_r, imgs_r, params, plain,
+                        right_reference=True)
+        return _extract(s_r, params, plain, with_sub=False,
+                        with_rwta=False)[0]
 
 
 def _stereo(imgs_l: torch.Tensor, imgs_r: torch.Tensor, params: SGMParams,
             plain: bool) -> torch.Tensor:
     """(B, H, W) uint8 pairs -> (B, H, W) float32 disparity."""
-    cen_l = census_transform(imgs_l, params.census_window)
-    cen_r = census_transform(imgs_r, params.census_window)
-    d_right = None
-    if params.lr_check and params.lr_mode == "reagg":
-        # first, so that S_R is freed before the left S exists
-        d_right = right_disparity_reagg(cen_l, cen_r, imgs_r, params, plain)
-    s = _s_volume(cen_l, cen_r, imgs_l, params, plain)
-    planes = _extract(plain)(s, params.s_invalid, params.lr_max_diff,
-                             params.subpixel,
-                             with_rwta=params.lr_check and d_right is None)
-    del s
-    return disparity_tail(planes, params, d_right)
+    with tracing.span("fsgm.stereo", frames=imgs_l.shape[0]):
+        cen_l = census_transform(imgs_l, params.census_window)
+        cen_r = census_transform(imgs_r, params.census_window)
+        d_right = None
+        if params.lr_check and params.lr_mode == "reagg":
+            # first, so that S_R is freed before the left S exists
+            d_right = right_disparity_reagg(cen_l, cen_r, imgs_r, params,
+                                            plain)
+        s = _s_volume(cen_l, cen_r, imgs_l, params, plain)
+        planes = _extract(s, params, plain, with_sub=params.subpixel,
+                          with_rwta=params.lr_check and d_right is None)
+        del s
+        return disparity_tail(planes, params, d_right)
 
 
 def disparity_tail(planes, params: SGMParams,
@@ -89,22 +96,23 @@ def disparity_tail(planes, params: SGMParams,
     right-view pass) -> (B, H, W) float32 disparity: subpixel, the LR check
     (by K3's valid plane, or against ``d_right``, the re-aggregated right
     view), median and fill."""
-    d_int, s_m, s_0, s_p, valid = planes
-    disp = d_int.to(torch.float32)
-    if params.subpixel:
-        disp = ext.subpixel_from_neighborhood(d_int, s_m, s_0, s_p,
-                                              params.max_disp)
-    if params.lr_check:
-        if d_right is None:
-            disp = torch.where(valid != 0, disp, INVALID)
-        else:
-            disp = ext.lr_check(disp, d_right, params.lr_max_diff,
-                                params.max_disp)
-    if params.median_filter:
-        disp = ext.median_filter_3x3(disp)
-    if params.fill_invalid:
-        disp = ext.interpolate_invalid(disp)
-    return disp
+    with tracing.span("fsgm.tail"):
+        d_int, s_m, s_0, s_p, valid = planes
+        disp = d_int.to(torch.float32)
+        if params.subpixel:
+            disp = ext.subpixel_from_neighborhood(d_int, s_m, s_0, s_p,
+                                                  params.max_disp)
+        if params.lr_check:
+            if d_right is None:
+                disp = torch.where(valid != 0, disp, INVALID)
+            else:
+                disp = ext.lr_check(disp, d_right, params.lr_max_diff,
+                                    params.max_disp)
+        if params.median_filter:
+            disp = ext.median_filter_3x3(disp)
+        if params.fill_invalid:
+            disp = ext.interpolate_invalid(disp)
+        return disp
 
 
 def stereo_sgm(img_l: torch.Tensor, img_r: torch.Tensor,

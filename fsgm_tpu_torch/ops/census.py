@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from fsgm_tpu_torch.utils import tracing
+
 _M1 = 0x5555555555555555
 _M2 = 0x3333333333333333
 _M4 = 0x0F0F0F0F0F0F0F0F
@@ -33,22 +35,23 @@ def census_transform(img: torch.Tensor, window=(5, 5)) -> torch.Tensor:
     if img.dim() < 2:
         raise ValueError(f"census_transform takes (..., H, W) images, got "
                          f"{tuple(img.shape)}")
-    ry, rx = ch // 2, cw // 2
-    h, w = img.shape[-2:]
-    centre = img.to(torch.int32)
-    rows = torch.arange(-ry, h + ry, device=img.device).clamp_(0, h - 1)
-    cols = torch.arange(-rx, w + rx, device=img.device).clamp_(0, w - 1)
-    padded = centre.index_select(-2, rows).index_select(-1, cols)
-    out = torch.zeros(img.shape, dtype=torch.int64, device=img.device)
-    bit = 0
-    for oy in range(ch):
-        for ox in range(cw):
-            if oy == ry and ox == rx:
-                continue
-            neighbour = padded[..., oy:oy + h, ox:ox + w]
-            out |= (neighbour < centre).to(torch.int64) << bit
-            bit += 1
-    return out
+    with tracing.span("fsgm.census"):
+        ry, rx = ch // 2, cw // 2
+        h, w = img.shape[-2:]
+        centre = img.to(torch.int32)
+        rows = torch.arange(-ry, h + ry, device=img.device).clamp_(0, h - 1)
+        cols = torch.arange(-rx, w + rx, device=img.device).clamp_(0, w - 1)
+        padded = centre.index_select(-2, rows).index_select(-1, cols)
+        out = torch.zeros(img.shape, dtype=torch.int64, device=img.device)
+        bit = 0
+        for oy in range(ch):
+            for ox in range(cw):
+                if oy == ry and ox == rx:
+                    continue
+                neighbour = padded[..., oy:oy + h, ox:ox + w]
+                out |= (neighbour < centre).to(torch.int64) << bit
+                bit += 1
+        return out
 
 
 def popcount64(x: torch.Tensor) -> torch.Tensor:

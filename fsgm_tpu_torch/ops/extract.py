@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from fsgm_tpu_torch.params import INVALID
+from fsgm_tpu_torch.utils import tracing
 
 BIG = 1 << 24  # out-of-range neighbourhood sentinel (callers gate on interior)
 
@@ -106,13 +107,14 @@ def lr_check(d_left: torch.Tensor, d_right: torch.Tensor,
 def median_filter_3x3(field: torch.Tensor) -> torch.Tensor:
     """3x3 median with edge-replicate padding at each frame's own edge (the
     5th of 9 values)."""
-    h, w = field.shape[-2:]
-    rows = torch.arange(-1, h + 1, device=field.device).clamp_(0, h - 1)
-    cols = torch.arange(-1, w + 1, device=field.device).clamp_(0, w - 1)
-    padded = field.index_select(-2, rows).index_select(-1, cols)
-    stack = torch.stack([padded[..., dy:dy + h, dx:dx + w]
-                         for dy in range(3) for dx in range(3)])
-    return stack.sort(dim=0).values[4]
+    with tracing.span("fsgm.median"):
+        h, w = field.shape[-2:]
+        rows = torch.arange(-1, h + 1, device=field.device).clamp_(0, h - 1)
+        cols = torch.arange(-1, w + 1, device=field.device).clamp_(0, w - 1)
+        padded = field.index_select(-2, rows).index_select(-1, cols)
+        stack = torch.stack([padded[..., dy:dy + h, dx:dx + w]
+                             for dy in range(3) for dx in range(3)])
+        return stack.sort(dim=0).values[4]
 
 
 def interpolate_invalid(field: torch.Tensor) -> torch.Tensor:

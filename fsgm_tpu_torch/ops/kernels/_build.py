@@ -22,7 +22,9 @@ launch nothing, such as K2's occupancy, and ``KERNELS`` the others).
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception.  ``LAUNCHES`` counts the
 kernel launches made by the wrappers in ``ops/kernels/*.py``: each wrapper
-adds one where it launches its kernel, and nowhere else.
+adds one where it launches its kernel, and nowhere else, through
+``utils/tracing.py::launched``, which also counts it in the open stage
+span.
 """
 
 from __future__ import annotations

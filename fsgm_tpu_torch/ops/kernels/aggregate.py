@@ -71,6 +71,7 @@ from typing import Sequence, Tuple
 import torch
 
 from fsgm_tpu_torch.ops.kernels import _build
+from fsgm_tpu_torch.utils import tracing
 
 INF = 1 << 30  # out-of-range label neighbour; INF + P2 + Cmax fits int32
 MAX_FAMILY = 16  # directions of one family launch
@@ -387,7 +388,7 @@ def sgm_sweep(cost: torch.Tensor, p2e: torch.Tensor,
                      int(packed16(s_dtype, nd, p1, p2_max)), b, h, w, nd,
                      nl, label_ext or 0, dy, dx, p1, _build.stream_of(cost))
         _build.check(err, "sgm_sweep")
-        _build.LAUNCHES["sgm_sweep"] += 1
+        tracing.launched("sgm_sweep")
     return (s, carry) if return_carry else s
 
 
@@ -472,7 +473,7 @@ def sgm_sweep_family(cost: torch.Tensor, p2e_tables: torch.Tensor,
                      nl, label_ext or 0, len(directions), dirs, p1,
                      _build.stream_of(cost))
         _build.check(err, "sgm_sweep_family")
-        _build.LAUNCHES["sgm_sweep_family"] += 1
+        tracing.launched("sgm_sweep_family")
     return s
 
 
@@ -575,16 +576,21 @@ def aggregate_paths(cost: torch.Tensor, img: torch.Tensor,
     kw = dict(s_dtype=plan_dtypes(s_max), label_ext=label_ext, nl=nl,
               p2_max=p2_bound(p1, p2))
     s = None
-    for group, family in launch_plan(cost.shape, cost.device, dirs, p1, p2,
-                                     s_max, label_ext):
-        if family:
-            tables = torch.stack([p2_effective(img, r, p1, p2, adaptive_p2)
-                                  for r in group])
-            s = sgm_sweep_family(cost, tables, group, p1, s=s, **kw)
-            continue
-        for r in group:  # one P2' table at a time
-            s = sgm_sweep(cost, p2_effective(img, r, p1, p2, adaptive_p2), r,
-                          p1, s=s, **kw)
+    with tracing.span("fsgm.aggregate"):
+        for group, family in launch_plan(cost.shape, cost.device, dirs, p1,
+                                         p2, s_max, label_ext):
+            with tracing.span("fsgm.aggregate.group", dirs=group,
+                              family=family):
+                if family:
+                    tables = torch.stack([
+                        p2_effective(img, r, p1, p2, adaptive_p2)
+                        for r in group])
+                    s = sgm_sweep_family(cost, tables, group, p1, s=s, **kw)
+                    continue
+                for r in group:  # one P2' table at a time
+                    s = sgm_sweep(cost, p2_effective(img, r, p1, p2,
+                                                     adaptive_p2),
+                                  r, p1, s=s, **kw)
     return s
 
 
@@ -594,7 +600,14 @@ def aggregate_paths_plain(cost: torch.Tensor, img: torch.Tensor,
                           s_max: int | None = None,
                           label_ext: int | None = None,
                           nl: int | None = None) -> torch.Tensor:
-    """aggregate_paths through the plain sweeps on any device."""
-    s = sum(sgm_sweep_plain(cost, p2_effective(img, r, p1, p2, adaptive_p2),
-                            r, p1, label_ext, nl) for r in dirs)
-    return s.to(plan_dtypes(s_max))
+    """aggregate_paths through the plain sweeps on any device, a group of
+    direction_groups at a time."""
+    s = 0
+    with tracing.span("fsgm.aggregate"):
+        for group in direction_groups(dirs):
+            with tracing.span("fsgm.aggregate.group", dirs=group,
+                              family=False):
+                s = s + sum(sgm_sweep_plain(
+                    cost, p2_effective(img, r, p1, p2, adaptive_p2), r, p1,
+                    label_ext, nl) for r in group)
+        return s.to(plan_dtypes(s_max))

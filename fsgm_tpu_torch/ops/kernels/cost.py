@@ -29,6 +29,7 @@ import torch
 
 from fsgm_tpu_torch.ops.census import hamming
 from fsgm_tpu_torch.ops.kernels import _build
+from fsgm_tpu_torch.utils import tracing
 
 
 WORD32_BITS = 32  # csrc/cost.cu: census_bits up to this take 32-bit words
@@ -106,5 +107,5 @@ def census_cost(cen_l: torch.Tensor, cen_r: torch.Tensor, max_disp: int,
                  max_disp, invalid_cost, int(right_reference), census_bits,
                  _build.stream_of(cen_l))
     _build.check(err, "census_cost")
-    _build.LAUNCHES["census_cost"] += 1
+    tracing.launched("census_cost")
     return out

@@ -50,6 +50,7 @@ import torch
 
 from fsgm_tpu_torch.ops import extract as ext
 from fsgm_tpu_torch.ops.kernels import _build
+from fsgm_tpu_torch.utils import tracing
 
 # csrc/extract.cu: a block's shared memory holds its ring of S pixels and
 # int32 planes of the row, each of stride at most W + 1 (rho, d*, s_0, s_m,
@@ -135,7 +136,7 @@ def extract_stereo(s: torch.Tensor, s_invalid: int, max_diff: int = 1,
                      w, nd, s_invalid, max_diff, int(with_sub),
                      int(with_rwta), gx0, w_global, _build.stream_of(s))
         _build.check(err, "extract_stereo")
-        _build.LAUNCHES["extract_stereo"] += 1
+        tracing.launched("extract_stereo")
     return tuple(outs) + (() if with_rwta else (None,))
 
 
@@ -169,7 +170,7 @@ def wta_right(s: torch.Tensor, s_invalid: int) -> torch.Tensor:
                      rho.data_ptr(), b, h, w, nd, s_invalid,
                      _build.stream_of(s))
         _build.check(err, "wta_right")
-        _build.LAUNCHES["wta_right"] += 1
+        tracing.launched("wta_right")
     return rho
 
 
@@ -236,7 +237,7 @@ def extract_flow(s: torch.Tensor, nl: int, label_ext: int,
             err = fn(s.data_ptr(), int(s.dtype == torch.int32), *ptrs, rows,
                      w, nd, nl, label_ext, int(with_sub), _build.stream_of(s))
         _build.check(err, "extract_flow")
-        _build.LAUNCHES["extract_flow"] += 1
+        tracing.launched("extract_flow")
     if not with_sub:
         return outs[0], None, None
     return outs[0], tuple(outs[1:4]), tuple(outs[4:7])

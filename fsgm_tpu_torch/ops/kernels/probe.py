@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from fsgm_tpu_torch.ops.kernels import _build
+from fsgm_tpu_torch.utils import tracing
 
 FORMS = ("minsi", "select", "widen", "packed", "int32")
 _FORM_INDEX = {form: k for k, form in enumerate(FORMS)}
@@ -72,5 +73,5 @@ def min_probe(a: torch.Tensor, b: torch.Tensor, form: str) -> torch.Tensor:
             err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, code,
                      _build.stream_of(a))
         _build.check(err, "min16_probe")
-        _build.LAUNCHES["min16_probe"] += 1
+        tracing.launched("min16_probe")
     return out

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from fsgm_tpu_torch.ops.kernels import _build
+from fsgm_tpu_torch.utils import tracing
 
 # the tiled kernel's layout (csrc/transpose.cu kChunk, kTileW, kRowChunks,
 # kMaxGroups): 16 labels a warp and a 16-byte store, 128 columns a tile,
@@ -78,5 +79,5 @@ def label_minor_from_major(vol: torch.Tensor) -> torch.Tensor:
         err = fn(vol.data_ptr(), out.data_ptr(), rows, nl, w,
                  _build.stream_of(vol))
     _build.check(err, "label_minor_from_major")
-    _build.LAUNCHES["label_minor_from_major"] += 1
+    tracing.launched("label_minor_from_major")
     return out

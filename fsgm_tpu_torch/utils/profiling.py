@@ -17,8 +17,8 @@ B random-dot pairs with the preset's distribution (default
 configs/tiled_4k.json, config 5; ``--tile-mode`` overrides its mode), every
 tile on the card, numbers per frame.  Each runs ``warmup`` calls first,
 then prints one line per kernel name (launches per frame, ms per frame,
-share of the busy time), then the totals, and last the whole record as one
-JSON object:
+share of the busy time), then the totals, then the stage table, and last
+the whole record as one JSON object:
 
   * ``busy_ms``: the sum of the rows, per frame, from torch.profiler over
     ``calls`` back-to-back calls.  On a card the rows are the device's
@@ -29,17 +29,22 @@ JSON object:
   * ``busy_share`` = busy_ms / wall_ms; on a card, 1 - busy_share is the
     device's idle share;
   * ``peak_mib``: the card's peak allocation over one call, i.e. all B
-    frames of a batch (None on the CPU).
+    frames of a batch (None on the CPU);
+  * ``stages``: the entry point's stage spans (utils/tracing.py) over the
+    same profiled calls, one row per span name: calls, hand-written kernel
+    launches and host self ms a frame, and on a card the device ms a frame
+    of the activities launched inside the span and not inside a child
+    (``stage_rows``).  The kernel rows leave the spans out.
 
 The module also holds the port's counterparts of fsgm_tpu/utils/
 profiling.py's tools, which the bench (fsgm_tpu_torch/bench.py) uses:
 
   * ``trace(log_dir)``: a torch.profiler context that writes a Chrome
-    trace (chrome://tracing, Perfetto) of what ran inside it;
-  * ``StageTimer``: wall time and modelled bytes per stage, and the
-    achieved GB/s against the card's HBM peak (``HBM_PEAK_GBS``);
+    trace (chrome://tracing, Perfetto) of what ran inside it, the stage
+    spans included;
+  * ``profiled`` and ``stage_rows``: the stage table of a few calls;
   * ``sgm_bytes_model``: the bytes the port's stereo kernels K1, K2 and
-    K3 must move (PERF.md's kernel table).
+    K3 must move (PERF.md's kernel table), and ``HBM_PEAK_GBS``.
 """
 
 from __future__ import annotations
@@ -48,6 +53,8 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
+import tempfile
 import time
 from pathlib import Path
 
@@ -62,6 +69,7 @@ from fsgm_tpu_torch.models.stereo import stereo_sgm_batch
 from fsgm_tpu_torch.params import (DistParams, FlowParams, SGMParams,
                                    load_preset)
 from fsgm_tpu_torch.parallel import stereo_sgm_sharded
+from fsgm_tpu_torch.utils import tracing
 
 CONFIGS = Path(__file__).resolve().parents[2] / "configs"
 PRESETS = {"stereo": CONFIGS / "kitti_stereo.json",
@@ -72,6 +80,7 @@ FLOW_MAX_MAG = 8  # px of motion in the flow pipeline's synthetic pair
 # data-sheet rate.  A card not listed (and the CPU) has no peak.
 HBM_PEAK_GBS = {"NVIDIA H100 80GB HBM3": 3350.0}
 TRACE_FILE = "trace.json"
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # Chrome trace cats
 
 
 def hbm_peak_gbs(dev: torch.device) -> float | None:
@@ -94,50 +103,6 @@ def trace(log_dir):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(out / TRACE_FILE))
-
-
-class StageTimer:
-    """Wall time and modelled bytes per named stage; report() gives each
-    stage's achieved GB/s and its share of the card's HBM peak (None where
-    the peak is unknown)."""
-
-    def __init__(self, dev: torch.device):
-        self.dev = dev
-        self.peak_gbs = hbm_peak_gbs(dev)
-        self.stages: dict[str, dict] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str, bytes_moved: int = 0):
-        """Time the block by the host clock between two synchronisations
-        of the device."""
-        sync(self.dev)
-        t0 = time.perf_counter()
-        yield
-        sync(self.dev)
-        self.record(name, time.perf_counter() - t0, bytes_moved)
-
-    def record(self, name: str, seconds: float, bytes_moved: int = 0):
-        """A time measured elsewhere (e.g. CUDA events over many calls)."""
-        rec = self.stages.setdefault(name, {"s": 0.0, "bytes": 0, "n": 0})
-        rec["s"] += seconds
-        rec["bytes"] += bytes_moved
-        rec["n"] += 1
-
-    def report(self) -> list[dict]:
-        out = []
-        for name, r in self.stages.items():
-            gbs = r["bytes"] / r["s"] / 1e9 if r["s"] > 0 else 0.0
-            pct = (None if self.peak_gbs is None
-                   else round(100 * gbs / self.peak_gbs, 1))
-            out.append({"stage": name, "wall_s": round(r["s"], 6),
-                        "calls": r["n"], "bytes": r["bytes"],
-                        "achieved_GBps": round(gbs, 1),
-                        "pct_of_HBM_peak": pct})
-        return out
-
-    def print_report(self, file=None):
-        for rec in self.report():
-            print(json.dumps(rec), file=file)
 
 
 def sgm_bytes_model(h: int, w: int, d: int, num_paths: int,
@@ -197,6 +162,48 @@ def wall_ms(fn, dev: torch.device, calls: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
+def profiled(frame, dev: torch.device, calls: int):
+    """torch.profiler over ``calls`` calls of frame() (and the card's
+    activity on a card): (the profile, the stage spans' records)."""
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    tracing.take()
+    with profile(activities=activities) as prof:
+        for _ in range(calls):
+            frame()
+        sync(dev)
+    return prof, tracing.take()
+
+
+def device_activities(prof) -> tuple[list, int | None]:
+    """(launch us, device us) of each device activity of a finished
+    profile, on its Chrome trace's clock, and that trace's base (ns)."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            data = json.load(f)
+    finally:
+        os.unlink(path)
+    events = [e for e in data["traceEvents"] if e.get("ph") == "X"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime"
+              and "correlation" in e.get("args", {})}
+    return ([(launch[c], e.get("dur", 0)) for e in events
+             if e.get("cat") in DEVICE_CATS
+             and (c := e.get("args", {}).get("correlation")) in launch],
+            data.get("baseTimeNanoseconds"))
+
+
+def stage_rows(prof, recs, dev: torch.device, frames: int) -> list[dict]:
+    """utils/tracing.py's stage_table of a profile's records a frame, with
+    the device ms on a card."""
+    device, base = (device_activities(prof) if dev.type == "cuda"
+                    else ((), None))
+    return tracing.stage_table(recs, frames, device, base)
+
+
 def profile_frames(frame, dev: torch.device, calls: int = 10,
                    warmup: int = 3, frames_per_call: int = 1) -> dict:
     """The per-frame breakdown record of ``frame()``, which computes
@@ -206,18 +213,13 @@ def profile_frames(frame, dev: torch.device, calls: int = 10,
     for _ in range(warmup):
         frame()
     sync(dev)
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                           if cuda else [])
-    with profile(activities=activities) as prof:
-        for _ in range(calls):
-            frame()
-        sync(dev)
+    prof, recs = profiled(frame, dev, calls)
     kind = DeviceType.CUDA if cuda else DeviceType.CPU
     frames = calls * frames_per_call
     rows = []
     for e in prof.key_averages():
         us = e.self_device_time_total if cuda else e.self_cpu_time_total
-        if e.device_type == kind and us > 0:
+        if e.device_type == kind and us > 0 and e.key not in tracing.SPANS:
             rows.append({"name": e.key, "launches": e.count / frames,
                          "ms": us / 1e3 / frames})
     if not rows:
@@ -236,7 +238,8 @@ def profile_frames(frame, dev: torch.device, calls: int = 10,
     return {"device": str(dev), "calls": calls,
             "frames_per_call": frames_per_call, "rows": rows,
             "busy_ms": busy, "wall_ms": wall, "busy_share": busy / wall,
-            "launches": sum(r["launches"] for r in rows), "peak_mib": peak}
+            "launches": sum(r["launches"] for r in rows), "peak_mib": peak,
+            "stages": stage_rows(prof, recs, dev, frames)}
 
 
 def profile_stereo(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
@@ -340,6 +343,8 @@ def main(argv=None) -> int:
           f"{rec['launches']:.2f} launches/frame, peak {rec['peak_mib']} MiB "
           f"({rec['device']}, {rec['pipeline']}, {rec['frames_per_call']} "
           f"frame(s) per call, shape {rec['shape']})")
+    for line in tracing.format_table(rec["stages"]):
+        print(line)
     print(json.dumps(rec))
     return 0
 

@@ -5,7 +5,8 @@
     FSGM_BENCH_FBGRID overrides) field for field;
   * sgm_bytes_model equals PERF.md's kernel-table formulas;
   * a small run on the CPU prints exactly one stdout line with bench.py's
-    keys and metric name, its stages, sustained mode and trace;
+    keys and metric name, its stage spans' table, sustained mode and
+    trace;
   * the guard passes against a loose best and exits 3 against a tight one;
   * the port's history covers every cell and names the card of each best.
 """
@@ -96,10 +97,14 @@ def test_small_run_prints_one_line_with_bench_keys(capsys, tmp_path):
     # no peak on the CPU: no vs_SoL and no share of a peak
     assert ctx["vs_SoL"] is None and ctx["peak_mib"] is None
     assert "# bench " in err and "# sustained: 1 queued" in err
+    # the stage spans of the entry point, in the order they first opened;
+    # on the CPU the plain versions launch no kernel and no device ms
     assert [r["stage"] for r in ctx["stages"]] == [
-        "census_cost", "agg_down", "agg_up", "agg_cols", "extract"]
-    assert all(r["bytes"] > 0 and r["pct_of_HBM_peak"] is None
-               for r in ctx["stages"])
+        "fsgm.stereo", "fsgm.census", "fsgm.cost", "fsgm.aggregate",
+        "fsgm.aggregate.group", "fsgm.extract", "fsgm.tail", "fsgm.median"]
+    assert all(r["calls"] > 0 and r["launches"] == 0 and r["host_ms"] >= 0
+               and "device_ms" not in r for r in ctx["stages"])
+    assert "# stages (10 calls of 2 frames" in err
     assert (tmp_path / TRACE_FILE).stat().st_size > 0
 
 
