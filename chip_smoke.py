@@ -26,11 +26,11 @@ direction.
 Phases, each of which raises on failure (non-zero exit, no ok line):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. build the kernels from fsgm_tpu_torch/csrc, one nvcc per source (six
-     sources, nine entry points), all started together, and print the
+  1. build the kernels from fsgm_tpu_torch/csrc, one nvcc per source (seven
+     sources, ten entry points), all started together, and print the
      -Xptxas -v record of every K2 instantiation (registers, shared
-     memory, spills) and of K1's, K3's, K4's and min16_probe's (the worst,
-     and the main path's);
+     memory, spills) and of K1's, K3's, K4's, K5's, K6's and min16_probe's
+     (the worst, and the main path's);
   2. stereo kernels K1 census_cost (left and right reference, with the
      main path's 32-bit census words and with 64-bit ones), K2 sgm_sweep
      (1D labels; each direction with packed and with int32 labels) and K3
@@ -42,14 +42,19 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
      padded to 96, blockwise_flow_pair(375, 1242, 8, seed=0)), and 37x53
      with radius 2 and adaptive P2, and with an int32 S; K5 also on random
      bytes at each of config 4's four level shapes (375x1242 ... 46x155,
-     96 slots);
+     96 slots); (b) K6 flow_cost, the flow paths' cost build, against
+     flow_cost_plain, exact, one launch a call, at config 4's four level
+     shapes with a non-zero prior over 1 and 16 slices and on the 4K flow
+     leg's level-0 row tile 1 in tiled mode (halo bases, y_offset 720;
+     equal to the untiled kernel's rows too), timed beside its bound and
+     the plain version (the kernels line's flow_cost row);
   4. stereo_sgm end to end against stereo_sgm_reference (plain versions
      only): identical invalid mask, valid disparities within 1e-3, D1-all
      against the ground truth, and each kernel's launch count in that call;
   5. flow_fsgm end to end against flow_fsgm_reference at config 4:
      identical validity planes, valid flow within 1e-3, Fl-all / EPE /
      valid share against the ground truth, and each kernel's launch count
-     in that call held to the lockstep plan (flow_launches: one K5, one K2
+     in that call held to the lockstep plan (flow_launches: one K6, one K2
      plan and one K4 a level-pass, over 2 slices where the backward pass
      runs); flow_fsgm_batch on 2 frames equals per-frame flow_fsgm;
   6. batched stereo: K1 (left and right reference), K2 (each direction and
@@ -175,7 +180,7 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
      flow_fsgm_batch on the 8 config-4 frames equal bit for bit to
      per-frame flow_fsgm, frame 0 to flow_fsgm_reference (validity equal,
      flow within 1e-3), its launches held to the lockstep plan (the
-     flow_batch path: one K5 and one K4 a level-pass whatever B is), and
+     flow_batch path: one K6 and one K4 a level-pass whatever B is), and
      chunk=None's pass size from the card's free memory (3 4K frames do
      not go in one pass); (c)
      every fb_backward x fb_grid mode at 96x128 over 3 frames, batched
@@ -190,7 +195,7 @@ Phases, each of which raises on failure (non-zero exit, no ok line):
      lockstep): (a) the 4K flow leg over 2 frames (seeds 0, 1) at 3 row
      tiles, exact, in one pass (chunk=2), each frame equal bit for bit to
      flow_fsgm, its launches held to one pass's plan (tiled_flow_launches:
-     15 K5, 120 K2, 15 K4 a call; the flow_tiled_batch path; phase 8(e)'s
+     15 K6, 120 K2, 15 K4 a call; the flow_tiled_batch path; phase 8(e)'s
      one-frame call is held to the same plan); (b) K5, K2 with carry and
      the 2D rule and K4 against their plain versions on those 2 frames'
      level-0 tile 1 as one (2, ...) stack; (c) config 4 on 8 frames as 2
@@ -264,7 +269,9 @@ OPS_PER_S = 67e12
 # direction, the horizontal pair in one family launch), sgm_sweep_family on
 # flow, sgm_sweep on 16 frames and on the tiled and multiproc paths.  The
 # multiproc paths' counts are summed over phase 11's ranks.  wta_right and
-# min16_probe are on no path: only phase 9 runs them.
+# min16_probe are on no path: only phase 9 runs them; K5
+# (label_minor_from_major) is on none since K6 (flow_cost) writes the
+# label-minor flow cost itself: phases 3, 8(e), 12(a) and 13(b) check it.
 SOURCES = {
     "census_cost": ("cost", "fsgm_tpu/ops/pallas/cost_tr.py:106",
                     ["fsgm_tpu/ops/pallas/cost_tr.py:264",
@@ -295,7 +302,10 @@ SOURCES = {
                             "flow_tiled_batch", "bench", "video", "kitti",
                             "multiproc_flow")),
     "label_minor_from_major": (
-        "transpose", "fsgm_tpu/ops/pallas/transpose_pallas.py:83", None,
+        "transpose", "fsgm_tpu/ops/pallas/transpose_pallas.py:83", None, ()),
+    "flow_cost": (
+        "flow_cost", "none (the XLA stage fsgm_tpu/ops/cost.py::"
+        "cost_volume_flow_major, with K5's pass)", None,
         ("flow", "flow_batch", "flow_tiled", "flow_tiled_batch", "bench",
          "video", "kitti", "multiproc_flow")),
     "min16_probe": ("min16_probe", "tools/tr_int16_probe.py:41", None, ()),
@@ -318,6 +328,7 @@ UHD_K4_FRAMES = 2       # 4K level-0 int16 S in one K4
 MODES_HW = (96, 128)    # phase 12's fb_backward x fb_grid frames
 MODES_FRAMES = 3
 UHD_FLOW_FRAMES = 2     # 4K flow frames of phase 13's tiled pass
+FLOW_COST_SLICES = 16   # slices of phase 3's K6 checks (a batch8 level)
 SHARD_FRAMES = 2        # config-4 flow frames a shard (rank) in phase 13
 
 
@@ -354,19 +365,21 @@ def ptxas_record() -> dict:
 
 def lib_ptxas_record() -> dict:
     """-Xptxas -v of cost.cu (K1), extract.cu (K3, wta_right),
-    extract_flow.cu (K4), transpose.cu (K5) and min16_probe.cu: per library
-    the instantiations, the worst registers, static shared memory and spill
-    bytes, and the main path's instantiation [registers, smem, spill
-    bytes]: K1 census_cost_kernel<NP=4, left, 32-bit words>, K3
-    extract_kernel<K=4, int16, with the right view>, K4
-    extract_flow_kernel<K=3, int16>, K5 transpose_tiled_kernel<G=6> (96
-    label slots), min16_probe's packed form."""
+    extract_flow.cu (K4), transpose.cu (K5), flow_cost.cu (K6) and
+    min16_probe.cu: per library the instantiations, the worst registers,
+    static shared memory and spill bytes, and the main path's
+    instantiation [registers, smem, spill bytes]: K1
+    census_cost_kernel<NP=4, left, 32-bit words>, K3 extract_kernel<K=4,
+    int16, with the right view>, K4 extract_flow_kernel<K=3, int16>, K5
+    transpose_tiled_kernel<G=6> (96 label slots), K6 flow_cost_kernel<32-bit
+    words>, min16_probe's packed form."""
     from fsgm_tpu_torch.ops.kernels import _build
     from fsgm_tpu_torch.utils.k2_bench import parse_ptxas
     main = {"cost": "census_cost_kernelILi4ELb0ELb1E",
             "extract": "extract_kernelILi4EsLi1E",
             "extract_flow": "extract_flow_kernelILi3EsE",
             "transpose": "transpose_tiled_kernelILi6EE",
+            "flow_cost": "flow_cost_kernelILb1EE",
             "min16_probe": "min_kernelILi3EE"}
     out = {}
     for lib, tag in main.items():
@@ -382,8 +395,8 @@ def lib_ptxas_record() -> dict:
                             for r in recs),
             main=[hit[0]["registers"], hit[0]["smem"],
                   hit[0]["spill_stores"] + hit[0]["spill_loads"]])
-    print(f"ptxas cost.cu, extract.cu, extract_flow.cu, transpose.cu and "
-          f"min16_probe.cu: {json.dumps(out)}")
+    print(f"ptxas cost.cu, extract.cu, extract_flow.cu, transpose.cu, "
+          f"flow_cost.cu and min16_probe.cu: {json.dumps(out)}")
     return out
 
 
@@ -745,18 +758,15 @@ def check_cli(params, dev) -> None:
           f"outputs == stereo_sgm within {worst} (PNG step 1/256)")
 
 
-def flow_level(hw, params, dev, frames: int | None = None,
-               seed: int = SEED) -> dict:
-    """One flow level as the main path builds it, on a blockwise pair with a
+def flow_cost_inputs(hw, params, dev, frames: int | None = None,
+                     seed: int = SEED) -> dict:
+    """The inputs of one flow level's cost build, on a blockwise pair with a
     non-zero prior (the ground truth, rounded, plus integer noise in
-    [-2, 2] from the seed): census, label-major cost padded to a multiple
-    of 32, and the P2' tables of the 8 directions.  With ``frames``, that
-    many pairs (seeds seed ... seed + frames - 1) stacked on a leading
-    axis, as the batched path builds a level over its slices."""
+    [-2, 2] from the seed): the images, their census and the bases.  With
+    ``frames``, that many pairs (seeds seed ... seed + frames - 1) stacked
+    on a leading axis, as the batched path builds a level over its
+    slices."""
     from fsgm_tpu_torch.ops.census import census_transform
-    from fsgm_tpu_torch.ops.cost import cost_volume_flow_major
-    from fsgm_tpu_torch.ops.kernels import aggregate as agg
-    from fsgm_tpu_torch.params import DIRS_8
 
     h, w = hw
     got = []
@@ -770,10 +780,25 @@ def flow_level(hw, params, dev, frames: int | None = None,
     t1, t2, bu, bv = (torch.stack(x) if frames else x[0]
                       for x in zip(*got))
     require(bool((bu != 0).any() and (bv != 0).any()), "prior is zero")
+    return dict(img=t1, img2=t2, bu=bu, bv=bv,
+                cen1=census_transform(t1, params.census_window),
+                cen2=census_transform(t2, params.census_window))
+
+
+def flow_level(hw, params, dev, frames: int | None = None,
+               seed: int = SEED) -> dict:
+    """One flow level as the main path builds it (flow_cost_inputs): the
+    label-major cost padded to a multiple of 32 (the plain build, K5's
+    input) and the P2' tables of the 8 directions."""
+    from fsgm_tpu_torch.ops.cost import cost_volume_flow_major
+    from fsgm_tpu_torch.ops.kernels import aggregate as agg
+    from fsgm_tpu_torch.params import DIRS_8
+
+    inp = flow_cost_inputs(hw, params, dev, frames, seed)
+    t1, t2 = inp["img"], inp["img2"]
     nl = params.num_labels
-    cen1 = census_transform(t1, params.census_window)
-    cen2 = census_transform(t2, params.census_window)
-    cost_m = cost_volume_flow_major(cen1, cen2, bu, bv, params.search_radius,
+    cost_m = cost_volume_flow_major(inp["cen1"], inp["cen2"], inp["bu"],
+                                    inp["bv"], params.search_radius,
                                     params.invalid_cost,
                                     nl_pad=-(-nl // 32) * 32)
     p2es = [agg.p2_effective(t1, r, params.p1, params.p2, params.adaptive_p2)
@@ -861,6 +886,76 @@ def check_k5_levels(dev) -> dict:
     require(err == 0, "K5 != plain at a config-4 level shape")
     print(f"K5 == plain at config 4's level shapes {FLOW_LEVELS} x 96")
     return {"label_minor_from_major": err}
+
+
+def check_flow_cost(fparams, dev, card_line: str) -> tuple:
+    """3(b): K6 flow_cost against flow_cost_plain, bit for bit, one launch
+    a call: at config 4's four level shapes with flow_cost_inputs' non-zero
+    prior, over one slice and over FLOW_COST_SLICES; on level-0 row tile 1
+    of the 4K flow leg in tiled mode (bases with ``radius`` halo rows, the
+    whole second image, its first global row as y_offset), which must also
+    equal those rows of the untiled kernel.  Timed at level 0 (1 and
+    FLOW_COST_SLICES slices) and on the 4K tile beside its bound (each
+    slice-pixel writes nl_pad bytes and reads 24: its census word, the
+    gathered second-image word, two bases; 3 ops a label) and the plain
+    version.  Returns (errs, times)."""
+    from fsgm_tpu_torch.ops.kernels import flow_cost as fc
+    r, nl = fparams.search_radius, fparams.num_labels
+    nd = -(-nl // 32) * 32
+
+    def args(inp, rows=None):
+        if rows is None:
+            return (inp["cen1"], inp["cen2"], inp["bu"], inp["bv"], r,
+                    fparams.invalid_cost, nd, 0, fparams.census_bits)
+        lo, hi = rows
+        return (inp["cen1"][lo:hi].contiguous(), inp["cen2"],
+                inp["bu"][lo - r:hi + r].contiguous(),
+                inp["bv"][lo - r:hi + r].contiguous(), r,
+                fparams.invalid_cost, nd, lo, fparams.census_bits)
+
+    def timed(a, px: int) -> dict:
+        b_ms, b_by = bound(px * (nd + 24), 3 * px * nl)
+        kern = lambda: fc.flow_cost(*a)  # noqa: E731
+        return dict(ms=median_ms(kern), device_ms=device_ms(kern),
+                    plain_ms=median_ms(lambda: fc.flow_cost_plain(*a),
+                                       reps=3, warmup=1),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    err, times = 0, {}
+    for frames in (None, FLOW_COST_SLICES):
+        for hw in FLOW_LEVELS:
+            inp = flow_cost_inputs(hw, fparams, dev, frames)
+            a = args(inp)
+            got, n6 = counted(lambda: fc.flow_cost(*a))
+            tag = f"K6 at {hw[0]}x{hw[1]} over {frames or 1} slices"
+            require(n6 == {"flow_cost": 1}, f"{tag}: launches {n6}")
+            e = exact_err(got, fc.flow_cost_plain(*a))
+            require(e == 0, f"{tag} != plain")
+            err = max(err, e)
+            if hw == FLOW_HW:
+                times[f"level0_x{frames or 1}"] = timed(
+                    a, (frames or 1) * hw[0] * hw[1])
+            del inp, a, got
+    fp, _, _, dist = uhd_flow(dev)
+    inp = flow_cost_inputs(UHD[:2], fp, dev)
+    ht = UHD[0] // dist.tiles_y
+    a = args(inp, (ht, 2 * ht))
+    got, n6 = counted(lambda: fc.flow_cost(*a))
+    tag = f"K6 on the 4K flow level-0 tile rows {ht}..{2 * ht - 1}"
+    require(n6 == {"flow_cost": 1}, f"{tag}: launches {n6}")
+    e = exact_err(got, fc.flow_cost_plain(*a))
+    require(e == 0, f"{tag} != plain")
+    require(torch.equal(got, fc.flow_cost(*args(inp))[ht:2 * ht]),
+            f"{tag} != the untiled kernel's rows")
+    err = max(err, e)
+    times["uhd_tile"] = timed(a, ht * UHD[1])
+    del inp, a, got
+    torch.cuda.empty_cache()
+    print(f"K6 flow_cost == plain, one launch a call: config 4's levels "
+          f"{FLOW_LEVELS} over 1 and {FLOW_COST_SLICES} slices, the 4K "
+          f"level-0 row tile (tiled mode == untiled rows); times "
+          f"{json.dumps(times)} ({card_line})")
+    return {"flow_cost": err}, times
 
 
 def merge_errs(*dicts) -> dict:
@@ -1136,7 +1231,7 @@ def check_uhd_flow_tile(dev, frames: int | None = None) -> dict:
 def tiled_flow_launches(fparams, tiles: int) -> dict:
     """{kernel: launches} of one pass of flow_fsgm_sharded in exact mode on
     a chain of ``tiles`` row tiles, whatever its frame count: on each tile
-    one K5, 8 sgm_sweep launches (the two horizontal directions, and the
+    one K6, 8 sgm_sweep launches (the two horizontal directions, and the
     three of each vertical family with its carry) and one K4 a level-pass;
     the level-passes as flow_launches counts them (a level's forward and
     backward passes are one, "single" adds its backward level, the last
@@ -1144,7 +1239,7 @@ def tiled_flow_launches(fparams, tiles: int) -> dict:
     mode = fparams.fb_backward if fparams.fb_check else None
     passes = fparams.levels + (mode == "single")
     split = mode == "cheap" and (fparams.subpixel or fparams.median_filter)
-    return {"label_minor_from_major": tiles * passes,
+    return {"flow_cost": tiles * passes,
             "sgm_sweep": 8 * tiles * passes,
             "extract_flow": tiles * (passes + split)}
 
@@ -1344,7 +1439,7 @@ def k2_launches(shape, dev, dirs, params, s_max=None,
 def flow_launches(img, fparams, dev, frames: int = 1) -> dict:
     """{kernel: launches} of one flow_fsgm_batch call over ``frames`` frames
     of img's shape (flow_fsgm: frames = 1), as models/flow.py runs the
-    pyramid: one level-pass (one K5, one aggregate_paths plan, one K4) per
+    pyramid: one level-pass (one K6, one aggregate_paths plan, one K4) per
     level, over 2 x frames slices where the backward pass runs beside the
     forward one (every level under fb_backward full and cheap, levels >= 1
     under half) and over frames slices elsewhere; "single" adds one
@@ -1364,7 +1459,7 @@ def flow_launches(img, fparams, dev, frames: int = 1) -> dict:
               for lvl, hw in enumerate(shapes)]
     if mode == "single":
         passes.append((shapes[0], frames, 1))
-    total = {"label_minor_from_major": len(passes),
+    total = {"flow_cost": len(passes),
              "extract_flow": sum(k4 for _, _, k4 in passes)}
     for (h, w), n, _ in passes:
         for k, c in k2_launches((n, h, w, nd), dev, DIRS_8, fparams,
@@ -1651,8 +1746,8 @@ def check_family_choice(params, tparams, fparams, f1, f2, dev,
         got, launches = counted(fn)
         k2 = k2_part(launches)
         require(k2 == want, f"{tag}: K2 launches {k2} != the plan's {want}")
-        # one K2 call a level-pass, as one K5
-        calls = calls or launches["label_minor_from_major"]
+        # one K2 call a level-pass, as one K6
+        calls = calls or launches["flow_cost"]
         rec = dict(frames=frames, launches=k2,
                    ms=median_ms(fn, reps=5) / frames)
         for fuse, name in ((True, "family"), (False, "per_direction")):
@@ -2485,7 +2580,7 @@ def check_flow_batch(fparams, dev, fref, fref_valid, card_line: str
     print(f"flow_fsgm_batch ({FLOW_BATCH} config-4 frames, one pass) == "
           f"per-frame flow_fsgm bit for bit; frame 0 vs flow_fsgm_reference:"
           f" validity equal, max |flow err| {ferr}; launches {launches} "
-          f"(one K5 and one K4 a level-pass, as at B = 1)")
+          f"(one K6 and one K4 a level-pass, as at B = 1)")
     del flows, valids
     # chunk=None on the card: as many frames a pass as its free memory
     # holds, so 3 4K pairs (~27 GB a frame) do not go in one pass
@@ -2724,6 +2819,8 @@ def main() -> int:
     errs = merge_errs(errs, check_flow_kernels(FLOW_SMALL, fwide, dev,
                                                "37x53 radius 2 int32 S"))
     errs = merge_errs(errs, check_k5_levels(dev))
+    fc_errs, fc_times = check_flow_cost(fparams, dev, card_line)
+    errs = merge_errs(errs, fc_errs)
 
     # 4. the stereo path end to end, launches counted in this call only
     h, w, d = KITTI
@@ -3053,6 +3150,7 @@ def main() -> int:
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     times["wta_right"] = {k: vtimes["wta_right"][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    times["flow_cost"] = fc_times["level0_x1"]
     times["min16_probe"] = {k: vtimes["min16"][k] for k in (
         "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     for name, (_, _, _, paths) in SOURCES.items():
@@ -3102,6 +3200,9 @@ def main() -> int:
         if name == "label_minor_from_major":  # config-4 level 0, 96 slots
             row["ptxas"] = lib_ptxas["transpose"]
             row["batch"] = axis_times[name]
+        if name == "flow_cost":  # the row's times: one config-4 level 0
+            row["ptxas"] = lib_ptxas["flow_cost"]
+            row["shapes"] = fc_times
         if name == "min16_probe":  # the row's times: the packed form
             row.update(forms=vtimes["min16"]["forms"], n=MIN16_N,
                        library_int32_ms=vtimes["min16"]["library_int32_ms"],

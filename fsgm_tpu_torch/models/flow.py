@@ -3,11 +3,10 @@
 Counterpart of fsgm_tpu/models/flow.py (``flow_fsgm``, ``flow_fsgm_batch``,
 ``flow_sequence``).  Per pyramid level, coarsest first:
 
-    census (plain torch) -> label-major flow cost (plain torch, ops/cost.py)
-    -> K5 label_minor_from_major -> K2 over 8 directions with the 2D
-    label rule (aggregate_paths, which plans its launches from the slice
-    count) -> K4 extract_flow -> parabola, base + offset and median (plain
-    torch)
+    census (plain torch) -> K6 flow_cost (the label-minor flow cost volume
+    in one launch) -> K2 over 8 directions with the 2D label rule
+    (aggregate_paths, which plans its launches from the slice count) -> K4
+    extract_flow -> parabola, base + offset and median (plain torch)
 
 over the (2w+1)^2 label window centred on the 2x-upsampled coarser flow.
 The label axis is padded to a multiple of 32 for the kernels; the padding
@@ -20,9 +19,9 @@ Every level runs over a leading slice axis, as the reference's vmaps do
 (``_flow_level_pair``, ``_flow_fsgm_batch_jit``): a call takes B frames,
 and at each level where the backward pass runs, its B slices join the
 forward pass's B (the guides, census pairs and window bases of both
-directions stacked), so that level is one cost build, one K5, one K2 plan
-and one K4 over 2B slices.  Below the backward pass's last level the
-forward slices run alone.  ``flow_fsgm`` is the batch of one;
+directions stacked), so that level is one K6, one K2 plan and one K4
+over 2B slices.  Below the backward pass's last level the forward slices
+run alone.  ``flow_fsgm`` is the batch of one;
 ``flow_fsgm_batch`` takes ``chunk`` frames a pass (by default all, or on
 the card as many as its free memory holds).
 
@@ -44,8 +43,8 @@ import torch
 from fsgm_tpu_torch.params import DIRS_8, FlowParams
 from fsgm_tpu_torch.ops import extract as ext
 from fsgm_tpu_torch.ops.census import census_transform
-from fsgm_tpu_torch.ops.cost import cost_volume_flow, cost_volume_flow_major
-from fsgm_tpu_torch.ops.kernels import aggregate, extract, transpose
+from fsgm_tpu_torch.ops.cost import cost_volume_flow
+from fsgm_tpu_torch.ops.kernels import aggregate, extract, flow_cost
 from fsgm_tpu_torch.utils import tracing
 
 
@@ -161,7 +160,7 @@ def _level_s(img1, cen1, cen2, base_u, base_v, params: FlowParams,
              plain: bool) -> torch.Tensor:
     """Cost volume + 8-path 2D-label aggregation of one level over N
     slices ((N, H, W) guides, census and bases): (N, H, W, D) S, D = nl
-    (plain) or nl padded to a multiple of 32 (kernels: one K5, one K2 plan
+    (plain) or nl padded to a multiple of 32 (kernels: one K6, one K2 plan
     over the N slices)."""
     e, r = params.window_extent, params.search_radius
     nl = params.num_labels
@@ -174,11 +173,10 @@ def _level_s(img1, cen1, cen2, base_u, base_v, params: FlowParams,
             cost, img1, DIRS_8, params.p1, params.p2, params.adaptive_p2,
             s_max=s_max, label_ext=e)
     with tracing.span("fsgm.cost"):
-        cost_m = cost_volume_flow_major(cen1, cen2, base_u, base_v, r,
-                                        params.invalid_cost,
-                                        nl_pad=-(-nl // 32) * 32)
-    with tracing.span("fsgm.transpose"):
-        cost = transpose.label_minor_from_major(cost_m)
+        cost = flow_cost.flow_cost(cen1, cen2, base_u, base_v, r,
+                                   params.invalid_cost,
+                                   nl_pad=-(-nl // 32) * 32,
+                                   census_bits=params.census_bits)
     return aggregate.aggregate_paths(
         cost, img1, DIRS_8, params.p1, params.p2, params.adaptive_p2,
         s_max=s_max, label_ext=e, nl=nl)
@@ -226,9 +224,9 @@ def _flow_level_pair(i1, i2, c1, c2, prior_f, prior_b, params: FlowParams,
     """One pyramid level of the forward AND backward passes over B frames
     as one launch set over 2B slices (the JAX package's _flow_level_pair
     under its frame vmap): the forward slices [i1, c1 vs c2, prior_f]
-    stacked on the backward ones [i2, c2 vs c1, prior_b], one cost build,
-    K5, K2 plan and K4 over them.  Extraction runs over both halves at
-    once where bwd_params equals params, else each half with its own
+    stacked on the backward ones [i2, c2 vs c1, prior_b], one K6, K2 plan
+    and K4 over them.  Extraction runs over both halves at once where
+    bwd_params equals params, else each half with its own
     params (the last backward level under fb_backward="cheap").  Per-slice
     arithmetic is that of two _flow_one_level calls on the kernel path."""
     b = i1.shape[0]

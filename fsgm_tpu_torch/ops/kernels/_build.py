@@ -67,6 +67,7 @@ ENTRY = {
                      [_P, _I] + [_P] * 7 + [_I] * 6 + [_P]),
     "label_minor_from_major": ("transpose", "fsgm_label_minor_from_major",
                                [_P, _P, _I, _I, _I, _P]),
+    "flow_cost": ("flow_cost", "fsgm_flow_cost", [_P] * 5 + [_I] * 10 + [_P]),
     "min16_probe": ("min16_probe", "fsgm_min16_probe",
                     [_P, _P, _P, ctypes.c_longlong, _I, _P]),
 }

@@ -8,10 +8,10 @@ its chain of row tiles as one pass, ``chunk`` frames at a time (the
 reference's vmap over a shard's frames): every tile holds an (N, Ht, W)
 stack.  Per pyramid level, coarsest first, on each row tile:
 
-    census (``halo`` true rows of each neighbour) -> the label-major flow
-    cost in tiled mode (ops/cost.py: the full second images, the prior flow
-    extended by ``radius`` true rows of each neighbour) -> K5 -> K2 x 8
-    with the 2D label rule, the vertical families carried across the seams
+    census (``halo`` true rows of each neighbour) -> K6 flow_cost in tiled
+    mode (the full second images, the prior flow extended by ``radius``
+    true rows of each neighbour) -> K2 x 8 with the 2D label rule, the
+    vertical families carried across the seams
     (parallel/tiled.py::aggregate_tiled, "exact" or "fast") -> K4 and the
     parabola -> the median over one exchanged row.
 
@@ -46,17 +46,16 @@ from fsgm_tpu_torch.models.flow import (_FRAME_BYTES_PER_LABEL_PIXEL,
                                         flow_fsgm_batch, upsample_flow_2x)
 from fsgm_tpu_torch.ops import extract as ext
 from fsgm_tpu_torch.ops.census import census_transform
-from fsgm_tpu_torch.ops.cost import cost_volume_flow_major
 from fsgm_tpu_torch.ops.kernels import aggregate as agg
-from fsgm_tpu_torch.ops.kernels import transpose
+from fsgm_tpu_torch.ops.kernels import extract, flow_cost
 from fsgm_tpu_torch.parallel.multihost import RankMesh, run_rank_shards
 from fsgm_tpu_torch.parallel.tiled import (aggregate_tiled, device_grid,
                                            exchange_row_halo, gather_rows,
                                            per_device, tile_margin)
 
-# K4 and K5 walk at most this many rows N * H in one launch; a pass's
-# level 0 holds up to 2 * chunk slices of a tile's rows
-MAX_ROWS = transpose.MAX_ROWS
+# K4 walks at most this many rows N * H in one launch; a pass's level 0
+# holds up to 2 * chunk slices of a tile's rows
+MAX_ROWS = extract.MAX_ROWS
 # Card memory a frame of a pass takes for the whole second images of a
 # device: the gathered [t1; t2] rows (2 bytes a pixel), their swapped
 # pyramid (at most 4/3 of that) and one level's int64 census of both
@@ -70,24 +69,24 @@ def _flow_level(i1: list, c2: list, prior: list, parts: list,
     Ht, W) tiles of the first images, c2 the census of the whole second
     images (N, H, W) on each tile's device, prior the (N, Ht, W, 2) prior
     flow tiles -> the level's (N, Ht, W, 2) flow tiles.  ``parts`` lists
-    (params, slices) in slice order: the parts share one cost, one K5 and
-    one tiled K2 a tile and extract each with its own params (the last
-    backward level under fb_backward "cheap"); they differ only there."""
+    (params, slices) in slice order: the parts share one K6 and one tiled
+    K2 a tile and extract each with its own params (the last backward
+    level under fb_backward "cheap"); they differ only there."""
     params = parts[0][0]
     ht = i1[0].shape[-2]
     halo = max(params.census_window[0] // 2, 2)
     i1_ext = exchange_row_halo(i1, halo, counters)
     cen1 = [census_transform(x, params.census_window)[..., halo:-halo, :]
-            for x in i1_ext]
+            .contiguous() for x in i1_ext]
     r, e, nl = params.search_radius, params.window_extent, params.num_labels
     prior_ext = exchange_row_halo(prior, r, counters, dim=-3)
     base_u = [torch.round(f[..., 0]).to(torch.int32) for f in prior_ext]
     base_v = [torch.round(f[..., 1]).to(torch.int32) for f in prior_ext]
-    costs = [transpose.label_minor_from_major(cost_volume_flow_major(
-        c1, c2k, bu, bv, r, params.invalid_cost, nl_pad=-(-nl // 32) * 32,
-        y_offset=k * ht))
-        for k, (c1, c2k, bu, bv) in enumerate(zip(cen1, c2, base_u,
-                                                   base_v))]
+    costs = [flow_cost.flow_cost(c1, c2k, bu, bv, r, params.invalid_cost,
+                                 nl_pad=-(-nl // 32) * 32, y_offset=k * ht,
+                                 census_bits=params.census_bits)
+             for k, (c1, c2k, bu, bv) in enumerate(zip(cen1, c2, base_u,
+                                                       base_v))]
     halos = [(x[..., halo - 2:halo, :], x[..., halo + ht:halo + ht + 2, :])
              for x in i1_ext]
     s = aggregate_tiled(costs, i1, halos, DIRS_8, params.p1, params.p2,
@@ -217,8 +216,8 @@ def flow_fsgm_sharded(imgs1: torch.Tensor, imgs2: torch.Tensor,
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if chunk is not None and 2 * min(chunk, f // fs) * (h // ty) > MAX_ROWS:
         raise ValueError(f"chunk {chunk}: a pass's 2 x chunk x {h // ty} "
-                         f"tile rows exceed the {MAX_ROWS} rows K4 and K5 "
-                         f"take in one launch")
+                         f"tile rows exceed the {MAX_ROWS} rows K4 takes in "
+                         f"one launch")
     if isinstance(devices, RankMesh):
         return run_rank_shards(
             devices, dist, lambda a, b, d, devs: _flow_frames(
@@ -234,7 +233,7 @@ def _frames_a_pass(devs: list, fl: int, h: int, w: int,
     tiles' level-0 label volume, Ht * W * num_labels at models/flow.py's
     bytes a label and pixel (the cost, S and their temporaries over both
     passes), and once the whole second images' (_SECOND_BYTES_PER_PIXEL
-    a pixel of the frame); K4's and K5's row limit caps it too."""
+    a pixel of the frame); K4's row limit caps it too."""
     ht = h // len(devs)
     n = min(fl, MAX_ROWS // (2 * ht))
     for d in set(devs):

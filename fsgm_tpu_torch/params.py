@@ -151,6 +151,11 @@ class FlowParams:
     def window_extent(self) -> int:
         return 2 * self.search_radius + 1
 
+    @property
+    def census_bits(self) -> int:
+        ch, cw = self.census_window
+        return ch * cw - 1
+
 
 @dataclasses.dataclass(frozen=True)
 class DistParams:

@@ -6,7 +6,9 @@ benches (utils/k13_bench.py, utils/k4_bench.py).
     caller waits for, the wrapper's host work included where it outlasts
     the kernel;
   * ``device_profile`` / ``device_ms``: torch.profiler's device time of one
-    call, the kernels' own, or None where no profile recorded a launch.
+    call, the kernels' own, or None where no profile recorded a launch;
+  * ``device_total``: the same summed over every activity of a call that
+    launches a kernel name many times (utils/flow_cost_bench.py).
 
 The module imports nothing of the package, so that a bench run on another
 tree of the port (``--root``) loads this file from its own tree by its
@@ -41,14 +43,11 @@ def median_ms(fn, reps: int = 10, warmup: int = 2, inner: int = 1) -> float:
     return float(np.median(times))
 
 
-def device_profile(fn, reps: int = 10, warmup: int = 1):
-    """torch.profiler's device time of one fn() call for a fn that launches
-    each of its kernels once: (the sum over its kernels of their mean
-    duration over ``reps`` calls, the launches the profile recorded a call,
-    the kernels' names).  The mean is over the recorded launches: a
-    profile may miss some, and one that records none is taken again, up
-    to PROFILE_ATTEMPTS profiles ((None, 0.0, []) if none recorded one:
-    no time was measured)."""
+def _device_rows(fn, reps: int, warmup: int) -> list:
+    """torch.profiler's device rows (key_averages) of ``reps`` fn() calls
+    after ``warmup`` calls; a profile that records no device launch is
+    taken again, up to PROFILE_ATTEMPTS profiles ([] if none recorded
+    one)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -65,11 +64,34 @@ def device_profile(fn, reps: int = 10, warmup: int = 1):
                 if e.device_type == DeviceType.CUDA and e.count]
         if rows:
             break
+    return rows
+
+
+def device_profile(fn, reps: int = 10, warmup: int = 1):
+    """torch.profiler's device time of one fn() call for a fn that launches
+    each of its kernels once: (the sum over its kernels of their mean
+    duration over ``reps`` calls, the launches the profile recorded a call,
+    the kernels' names).  The mean is over the recorded launches: a
+    profile may miss some ((None, 0.0, []) if no profile recorded one: no
+    time was measured)."""
+    rows = _device_rows(fn, reps, warmup)
     if not rows:
         return None, 0.0, []
     return (sum(e.self_device_time_total / e.count for e in rows) / 1e3,
             sum(e.count for e in rows) / reps,
             sorted({e.key[:60] for e in rows}))
+
+
+def device_total(fn, reps: int = 10, warmup: int = 1):
+    """torch.profiler's device time of one fn() call summed over every
+    activity it launches, however often a kernel's name recurs (a plain
+    PyTorch stage), and the activities a call: (ms, launches), (None, 0.0)
+    if no profile recorded one."""
+    rows = _device_rows(fn, reps, warmup)
+    if not rows:
+        return None, 0.0
+    return (sum(e.self_device_time_total for e in rows) / 1e3 / reps,
+            sum(e.count for e in rows) / reps)
 
 
 def device_ms(fn, reps: int = 10, warmup: int = 1) -> float | None:

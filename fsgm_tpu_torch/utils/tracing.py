@@ -48,8 +48,7 @@ SPANS = {
     "fsgm.pyramid": "build_pyramid, the prior's down-sampling, the flow's "
                     "up-sampling between levels",
     "fsgm.level": "one pyramid level (level, slices)",
-    "fsgm.cost": "the cost build: K1 in stereo, the flow cost volume",
-    "fsgm.transpose": "K5 label_minor_from_major",
+    "fsgm.cost": "the cost build: K1 in stereo, K6 (flow_cost) in flow",
     "fsgm.aggregate": "aggregate_paths(_plain)",
     "fsgm.aggregate.group": "one launch_plan group (dirs, family)",
     "fsgm.extract": "K3 / K4 or their plain versions",

@@ -1,5 +1,5 @@
-"""PyTorch port: the benches under fsgm_tpu_torch/utils/ (the kernels' and
-flow_bench.py), run as the README runs them (``python
+"""PyTorch port: the benches under fsgm_tpu_torch/utils/ (the kernels',
+flow_bench.py and flow_cost_bench.py), run as the README runs them (``python
 fsgm_tpu_torch/utils/k13_bench.py``).
 
 A script's directory leads sys.path, and that directory holds the port's
@@ -18,7 +18,8 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 
 
-@pytest.mark.parametrize("bench", ["k2", "k4", "k5", "k13", "flow"])
+@pytest.mark.parametrize("bench", ["k2", "k4", "k5", "k13", "flow",
+                                   "flow_cost"])
 def test_bench_script_reaches_its_no_card_exit(bench):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run(

@@ -34,8 +34,7 @@ torch.set_num_threads(1)
 FLOW = FlowParams(search_radius=4, levels=4, fb_backward="half",
                   fb_grid="half")
 STEREO = SGMParams(max_disp=16)
-LEVEL_STAGES = {"fsgm.cost", "fsgm.transpose", "fsgm.aggregate",
-                "fsgm.extract", "fsgm.tail"}
+LEVEL_STAGES = {"fsgm.cost", "fsgm.aggregate", "fsgm.extract", "fsgm.tail"}
 
 
 def _stereo():
