@@ -26,6 +26,19 @@ state freed, the reference computes the sampled calls' frames and
 compare.checks decides ``correct``.  The guard against the JAX package
 (guard.FORBIDDEN) looks after set-up, when the window has closed, and
 once more when the reference and the metrics have run, before the result.
+
+A cell may ask for several cards (``chips``).  This process and its card
+(rank 0) are all the harness sees: a multi-card cell's traced per-layer
+metrics and breakdown cover rank 0 alone.  The driver owns the processes
+it starts on the other cards, and two optional functions of its module
+serve them, each called only where the module defines it:
+``memory_peak_bytes(call)`` gives one peak a card, rank 0's among them,
+and the result reports as ``device.count`` the cards whose peak is above
+0 and as ``memory_peak_bytes`` the largest (without it: one card, this
+process's own peak); then ``close(call)``, called once after the traced
+stretch and before the program's state is freed, ends those processes, so
+that the reference runs on a quiet card and the run exits cleanly.  A
+driver whose run fails before ``close`` ends them when this process exits.
 """
 
 from __future__ import annotations
@@ -223,8 +236,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                    random.Random(seed), device)
     breakdown = _traced(call, inputs, run, in_flight, device) if trace \
         else None
-    peak = (torch.cuda.max_memory_allocated(device)
-            if device.type == "cuda" else 0)
+    if hasattr(driver, "memory_peak_bytes"):
+        # one peak a card the call used: the cards it left untouched read 0
+        peaks = [p for p in driver.memory_peak_bytes(call) if p > 0]
+    else:
+        peaks = [torch.cuda.max_memory_allocated(device)
+                 if device.type == "cuda" else 0]
+    if hasattr(driver, "close"):
+        driver.close(call)
     check_guard("when the window closed")
 
     # the program's state goes before the reference runs
@@ -249,7 +268,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
-           "kind": run.card, "count": 1, "memory_peak_bytes": peak}
+           "kind": run.card, "count": len(peaks),
+           "memory_peak_bytes": max(peaks, default=0)}
     result = {"correct": all(c["value"] <= c["limit"]
                              for c in checks.values()),
               "attempted": run.frames_done, "failed": failed,

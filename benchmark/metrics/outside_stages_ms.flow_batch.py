@@ -1,0 +1,8 @@
+"""outside_stages_ms.flow_batch: the reading of outside_stages_ms.batch, in the
+batched flow cells, which report their rate as frames_per_s.flow_batch."""
+
+from benchmark import spec
+
+
+def read(run):
+    return spec.load_metric("outside_stages_ms.batch").read(run)

@@ -30,6 +30,10 @@ half the tolerance and upsamples the validity plane by nearest neighbour.
 ``run`` takes (F, H, W) uint8 pairs and gives ((F, H, W, 2) float32 flow,
 (F, H, W) bool validity), the frames in blocks of ``block``; each level
 runs the forward and backward passes of a block as one stack of slices.
+The default block (``default_block``) holds no more label-pixels (H * W *
+labels at level 0) than 8 KITTI frames (375 x 1242) at 81 labels, and at
+least one frame: 8 frames at config 4's size.  Blocking changes no output:
+every frame is computed on its own.
 """
 
 from __future__ import annotations
@@ -37,6 +41,9 @@ from __future__ import annotations
 import torch
 
 from benchmark.reference import sgm
+
+# label-pixels (H * W * labels) of the largest block: 8 KITTI frames at 81
+BLOCK_LABEL_PX = 8 * 375 * 1242 * 81
 
 
 def _supported(p: dict) -> None:
@@ -200,9 +207,16 @@ def flow(img1: torch.Tensor, img2: torch.Tensor, p: dict,
     return fwd, fb_valid(fwd, bwd, p["fb_max_diff"])
 
 
+def default_block(cfg: dict) -> int:
+    """Frames a block at the configuration's size (module docstring)."""
+    labels = (2 * cfg["params"]["search_radius"] + 1) ** 2
+    return max(1, BLOCK_LABEL_PX // (cfg["height"] * cfg["width"] * labels))
+
+
 def run(imgs_a: torch.Tensor, imgs_b: torch.Tensor, cfg: dict,
-        control: str | None = None, block: int = 8) -> tuple:
+        control: str | None = None, block: int | None = None) -> tuple:
     """The reference's outputs for F frames: (flow, validity)."""
+    block = block or default_block(cfg)
     outs = [flow(imgs_a[k:k + block], imgs_b[k:k + block], cfg["params"],
                  control) for k in range(0, imgs_a.shape[0], block)]
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))

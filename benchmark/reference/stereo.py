@@ -10,7 +10,11 @@ invalid pixels marked -1.
 
 ``run`` is what the harness calls: it takes (F, H, W) uint8 pairs and
 gives ((F, H, W) float32 disparity,), frames in blocks of ``block``, so
-that the S volumes of a block fit beside the program's outputs.
+that the S volumes of a block fit beside the program's outputs.  The
+default block (``default_block``) holds no more label-pixels (H * W * D)
+than 16 KITTI frames (375 x 1242) at D = 128, and at least one frame: 16
+frames at config 2's size, one at 2160 x 3840 (a peak of about 23 GB).
+Blocking changes no output: every frame is computed on its own.
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ import torch
 from benchmark.reference import sgm
 
 INVALID = -1.0
+
+# label-pixels (H * W * D) of the largest block: 16 KITTI frames at D = 128
+BLOCK_LABEL_PX = 16 * 375 * 1242 * 128
 
 
 def _supported(p: dict) -> None:
@@ -94,9 +101,16 @@ def disparity(img_l: torch.Tensor, img_r: torch.Tensor, p: dict,
     return disp
 
 
+def default_block(cfg: dict) -> int:
+    """Frames a block at the configuration's size (module docstring)."""
+    px = cfg["height"] * cfg["width"] * cfg["params"]["max_disp"]
+    return max(1, BLOCK_LABEL_PX // px)
+
+
 def run(imgs_a: torch.Tensor, imgs_b: torch.Tensor, cfg: dict,
-        control: str | None = None, block: int = 16) -> tuple:
+        control: str | None = None, block: int | None = None) -> tuple:
     """The reference's outputs for F frames: ((F, H, W) float32,)."""
+    block = block or default_block(cfg)
     return (torch.cat([disparity(imgs_a[k:k + block], imgs_b[k:k + block],
                                  cfg["params"], control)
                        for k in range(0, imgs_a.shape[0], block)]),)

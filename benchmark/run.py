@@ -7,6 +7,12 @@ from the root of a checkout.  The cell's configuration, traffic mix and
 metrics are read from BENCHMARK.json and the files under benchmark/ by
 their names (benchmark/spec.py); harness.py says what a run does.
 
+A cell that asks for several cards (``chips``) runs from this one
+process on card 0 (rank 0); the cell's driver starts and owns the ranks on
+the other cards, and ends them in its ``close`` or when this process
+exits (harness.py).  The traced per-layer metrics and the breakdown of
+such a cell see rank 0's process and card alone.
+
 Standard output's last line is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
 with --trace 1 its per-layer ones), ``device``, with --trace 1

@@ -6,7 +6,11 @@
     benchmark/traffic/<traffic>.json     a traffic mix: driver, frames a
                                          call, pool, generator, samples
     benchmark/drivers/<driver>.py        build(cfg) -> call(a, b): the call
-                                         into the program for one entry
+                                         into the program for one entry;
+                                         optional close(call) and
+                                         memory_peak_bytes(call) (a peak
+                                         a card) for a driver with ranks
+                                         on other cards
     benchmark/inputs/<generator>.py      make(frames, cfg, gen, **args)
     benchmark/reference/<kind>.py        run(a, b, cfg, control=None)
     benchmark/work/<kind>.py             aggregate_work(cfg) -> (bytes, ops)

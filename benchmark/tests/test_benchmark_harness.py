@@ -2,6 +2,7 @@
 its name, a run without a card, the result line's keys, and the trace
 readings; one test drives a cell on the card (marked cuda)."""
 
+import copy
 import json
 import re
 import subprocess
@@ -25,8 +26,8 @@ def _line(text: str) -> bool:
     return 1 <= len(text) <= 200 and "\n" not in text and "\t" not in text
 
 
-def test_benchmark_json_keeps_its_contract():
-    b = spec.load_benchmark()
+def check_contract(b: dict) -> None:
+    """Asserts that the benchmark ``b`` keeps its contract."""
     assert set(b) == TOP
     assert b["command"] == ["python3", "benchmark/run.py"]
     assert b["paths"] == ["benchmark"] and 1 <= b["run_seconds"] <= 51
@@ -41,8 +42,12 @@ def test_benchmark_json_keeps_its_contract():
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and NAME.match(w["traffic"])
-        assert w["config"] in configs and w["chips"] == 1 and _line(w["why"])
+        assert w["config"] in configs and _line(w["why"])
+        assert w["chips"] in (1, 4), w
         pairs.add((w["config"], w["traffic"]))
+    four = sum(w["chips"] == 4 for w in b["workloads"])
+    assert four <= max(1, len(b["workloads"]) // 4), \
+        f"{four} four-card cells of {len(b['workloads'])}"
     assert len(pairs) == len(b["workloads"]) == len(set(cells()))
     assert {w["config"] for w in b["workloads"]} == set(configs)
     e2e = {m["name"]: m for m in b["end_to_end"]}
@@ -72,6 +77,24 @@ def test_benchmark_json_keeps_its_contract():
         assert "setup_s" in reported and len(reported) >= 2
         assert spec.metrics_for(b, cell, True)
     assert len(json.dumps(b)) < 64 * 1024
+
+
+def test_benchmark_json_keeps_its_contract():
+    check_contract(spec.load_benchmark())
+
+
+@pytest.mark.parametrize("beyond", [0, 1])
+def test_the_contract_takes_one_four_card_cell_and_refuses_a_second(beyond):
+    """max(1, cells // 4) cells may ask for 4 cards, and no more."""
+    b = copy.deepcopy(spec.load_benchmark())
+    allowed = max(1, len(b["workloads"]) // 4)
+    for w in b["workloads"][:allowed + beyond]:
+        w["chips"] = 4
+    if not beyond:
+        check_contract(b)
+    else:
+        with pytest.raises(AssertionError, match="four-card cells"):
+            check_contract(b)
 
 
 def test_every_name_loads_from_its_file():
@@ -108,9 +131,9 @@ def test_a_run_without_a_card_fails_and_prints_no_result():
     assert "no result" in proc.stderr
 
 
-def _stub_driver(kind: str, monkeypatch) -> None:
+def _stub_driver(kind: str, monkeypatch, **hooks) -> None:
     """spec.load_driver answering with a stub entry point that returns the
-    reference's own outputs."""
+    reference's own outputs (and the driver functions ``hooks``)."""
     load_driver, ref = spec.load_driver, spec.load_reference(kind)
 
     def stub(name):
@@ -121,7 +144,8 @@ def _stub_driver(kind: str, monkeypatch) -> None:
                 return lambda a, b: ref.run(a, b, cfg)
             return lambda a, b: tuple(o[0] for o in ref.run(a[None], b[None],
                                                              cfg))
-        return types.SimpleNamespace(FRAME_AXIS=frame_axis, build=build)
+        return types.SimpleNamespace(FRAME_AXIS=frame_axis, build=build,
+                                     **hooks)
     monkeypatch.setattr(spec, "load_driver", stub)
 
 
@@ -146,6 +170,44 @@ def test_result_line_keys_with_a_stub_driver(cell, small_cells,
     assert all(v["value"] > 0 for v in r["metrics"].values())
     assert r["checks"] == {"mismatched_px": {"value": 0, "limit": 0}}
     json.dumps(r)
+
+
+@pytest.mark.parametrize("peaks,count", [
+    ((123_456_789, 5, 7, 9), 4), ((123_456_789, 0, 0, 0), 1)])
+def test_a_multi_card_driver_is_closed_before_the_reference(
+        peaks, count, small_cells, monkeypatch):
+    """A driver's close runs once, after its peaks are read and before the
+    reference; the line reports the largest peak and, as the count, the
+    cards whose peak is above 0 (not the cell's chips)."""
+    cell = cells()[0]
+    bench = copy.deepcopy(spec.load_benchmark())
+    spec.cell(bench, cell)["chips"] = 4
+    monkeypatch.setattr(spec, "load_benchmark", lambda: bench)
+    kind = spec.load_config(spec.cell(bench, cell)["config"])["kind"]
+    seen = []
+
+    def peak(call):
+        seen.append("peak")
+        return list(peaks)
+
+    _stub_driver(kind, monkeypatch, memory_peak_bytes=peak,
+                 close=lambda call: seen.append("close"))
+    load_reference = spec.load_reference
+
+    def reference(name):
+        ref = load_reference(name)
+
+        def run(*args, **kwargs):
+            seen.append("reference")
+            return ref.run(*args, **kwargs)
+        return types.SimpleNamespace(run=run)
+    monkeypatch.setattr(spec, "load_reference", reference)
+    r = harness.run_cell(cell, 2 ** 31 + 11, 0.05, False,
+                         torch.device("cpu"), time.perf_counter())
+    assert seen == ["peak", "close", "reference"]
+    assert r["correct"] is True
+    assert r["device"]["count"] == count
+    assert r["device"]["memory_peak_bytes"] == 123_456_789
 
 
 @pytest.mark.parametrize("loader", ["load_reference", "load_metric"])

@@ -57,6 +57,32 @@ def test_flow_reference_at_config4_labels():
     assert torch.equal(got[0][0], want[0]) and torch.equal(got[1][0], want[1])
 
 
+@pytest.mark.parametrize("config,size,want", [
+    ("kitti_stereo", None, 16), ("kitti_flow", None, 8),
+    ("kitti_stereo", (2160, 3840), 1), ("kitti_flow", (2160, 3840), 1)])
+def test_default_block_follows_the_configuration(config, size, want):
+    """16 and 8 frames at the cells' own sizes, one 4K frame."""
+    cfg = spec.load_config(config)
+    if size is not None:
+        cfg = {**cfg, "height": size[0], "width": size[1]}
+    assert spec.load_reference(cfg["kind"]).default_block(cfg) == want
+
+
+@pytest.mark.parametrize("config", ["kitti_stereo", "kitti_flow"])
+def test_blocks_change_no_output(config):
+    """Frame by frame equals the default block (all 3 frames at once here),
+    bit for bit."""
+    cfg = shrink(spec.load_config(config))
+    make = (random_dot_stereo if cfg["kind"] == "stereo"
+            else blockwise_flow).make
+    a, b, _ = make(3, cfg, _gen(2 ** 31 + 21))
+    ref = spec.load_reference(cfg["kind"])
+    assert ref.default_block(cfg) >= 3
+    whole, single = ref.run(a, b, cfg), ref.run(a, b, cfg, block=1)
+    assert len(whole) == len(single)
+    assert all(torch.equal(x, y) for x, y in zip(whole, single))
+
+
 @pytest.mark.parametrize("config,key,value", [
     ("kitti_stereo", "lr_mode", "reagg"),
     ("kitti_flow", "fb_backward", "cheap")])

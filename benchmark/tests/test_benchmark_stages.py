@@ -14,7 +14,7 @@ from fsgm_tpu_torch.utils import tracing
 BASE = tracing.trace_base_ns(1_790_000_000 * 10 ** 9)
 
 
-def _trace(launches, frames=2):
+def _trace(launches, frames=2, kernel_stages=None):
     """A lean trace: for each (launch us, start us, dur us) a runtime call
     of 5 us and a kernel, correlated; the window is the runtime calls'."""
     events = []
@@ -24,7 +24,7 @@ def _trace(launches, frames=2):
                        "args": {"correlation": k}})
         events.append({"ph": "X", "cat": "kernel", "name": f"k{k}",
                        "ts": start, "dur": dur, "args": {"correlation": k}})
-    return devtrace.Trace(events, frames, {})
+    return devtrace.Trace(events, frames, kernel_stages or {})
 
 
 def _rec(k, name, parent, t0_us, t1_us):
@@ -72,6 +72,23 @@ def test_the_eight_metrics_read_it(program):
             "census_idle_ms.stream": 5.5e-3, "cost_idle_ms.stream": 0.0}
     got = {name: spec.load_metric(name).read(run) for name in want}
     assert got == pytest.approx(want)
+
+
+@pytest.mark.parametrize("name", [
+    "frames_per_s", "aggregate_roofline_pct", "plain_torch_ms",
+    "device_idle_pct", "census_ms", "cost_ms", "median_ms",
+    "outside_stages_ms"])
+def test_the_flow_batch_metrics_read_as_the_batch_ones(program, name):
+    """Each metric of the batched flow cells reads what its counterpart of
+    the stereo batch cell reads (frames_per_s, or the .batch metric)."""
+    run = types.SimpleNamespace(
+        trace=_trace(LAUNCHES, kernel_stages={"k2": "aggregate"}),
+        cfg=spec.load_config("kitti_flow"), frames_done=40, window_s=0.05,
+        peaks=spec.peaks("NVIDIA H100 80GB HBM3"))
+    batch = name if name == "frames_per_s" else f"{name}.batch"
+    want = spec.load_metric(batch).read(run)
+    assert want is not None and want > 0
+    assert spec.load_metric(f"{name}.flow_batch").read(run) == want
 
 
 @pytest.mark.parametrize("fault", ["shifted", "none", "unlaunched"])
