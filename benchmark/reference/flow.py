@@ -34,6 +34,9 @@ The default block (``default_block``) holds no more label-pixels (H * W *
 labels at level 0) than 8 KITTI frames (375 x 1242) at 81 labels, and at
 least one frame: 8 frames at config 4's size.  Blocking changes no output:
 every frame is computed on its own.
+
+``SMALL`` is the size the benchmark's CPU tests shrink a configuration of
+this kind to (every switch as the configuration states it).
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ from benchmark.reference import sgm
 
 # label-pixels (H * W * labels) of the largest block: 8 KITTI frames at 81
 BLOCK_LABEL_PX = 8 * 375 * 1242 * 81
+
+SMALL = dict(height=40, width=56, params=dict(levels=2, search_radius=2))
 
 
 def _supported(p: dict) -> None:

@@ -3,7 +3,7 @@ SGM path recurrence, winner-take-all and the 3x3 median.
 
 Written for the benchmark from the published method (Hirschmueller, PAMI
 2008; census after Zabih and Woodfill, ECCV 1994) in the integer form of
-configs 2 and 4, and imports nothing of the program under test: the
+configs 2, 3 and 4, and imports nothing of the program under test: the
 comparison that decides a run's ``correct`` holds the program to these
 functions.  Every function takes leading frame axes and treats each frame
 on its own; every integer stage is exact, so the program's output has to
@@ -26,6 +26,9 @@ BIG = 1 << 24
 # the 8 path directions (dy, dx): the predecessor of p on path r is p - r
 DIRS_8 = ((0, 1), (0, -1), (1, 0), (-1, 0),
           (1, 1), (1, -1), (-1, 1), (-1, -1))
+# the 16 of Hirschmueller's paper: the 8 and the knight moves
+DIRS_16 = DIRS_8 + ((1, 2), (1, -2), (-1, 2), (-1, -2),
+                    (2, 1), (2, -1), (-2, 1), (-2, -1))
 
 # lowered precisions the controls compute in:
 #   cost_int4      - matching costs held in 4 bits (saturated at 15) where
@@ -100,20 +103,33 @@ def _neighbour_min(prev: torch.Tensor, label_ext: int | None
     return m.reshape(prev.shape)
 
 
-def _step(prev, cost, valid, p1: int, p2: int, label_ext):
+def inside(n: int, d: int) -> tuple[slice, slice]:
+    """Along an axis of n: the positions q whose q - d lies inside, and
+    those q - d."""
+    return slice(max(d, 0), n + min(d, 0)), slice(max(-d, 0), n - max(d, 0))
+
+
+def _step(prev, cost, valid, p1: int, p2, label_ext):
     """L(p) = C(p) + min(L(p-r, l), N(p-r, l) + P1, m + P2) - m with m =
-    min_k L(p-r, k); L(p) = C(p) where p - r lies outside (not valid)."""
+    min_k L(p-r, k); L(p) = C(p) where p - r lies outside (not valid).
+    ``p2`` is an int or P2' of each line's pixel, shaped as ``m``."""
     m = prev.amin(dim=-1, keepdim=True)
     best = torch.minimum(
         torch.minimum(prev, _neighbour_min(prev, label_ext) + p1), m + p2)
     return torch.where(valid[..., None], cost + best - m, cost)
 
 
-def path_cost(cost: torch.Tensor, direction, p1: int, p2: int,
+def path_cost(cost: torch.Tensor, direction, p1: int, p2,
               label_ext: int | None = None) -> torch.Tensor:
-    """L_r over (..., H, W, nl) costs for one direction r = (dy, dx),
-    |dy|, |dx| <= 1, as int32: a loop along the scan axis, each step
-    vectorised over frames, lines and labels."""
+    """L_r over (..., H, W, nl) costs for one direction r = (dy, dx) of
+    DIRS_16, as int32: a loop along the scan axis (x where dy = 0, else y),
+    each step vectorised over frames, lines and labels.  A pixel whose
+    p - r lies outside the frame starts its path (L = C): the first scan
+    column where dy = 0, else the first |dy| scan rows and |dx| edge
+    columns.  ``p2`` is an int, or an (..., H, W) integer tensor of P2'
+    at each pixel p."""
+    if tuple(direction) not in DIRS_16:
+        raise ValueError(f"direction {direction} is none of {DIRS_16}")
     dy, dx = direction
     h, w = cost.shape[-3:-1]
     c = cost.to(torch.int32)
@@ -123,30 +139,34 @@ def path_cost(cost: torch.Tensor, direction, p1: int, p2: int,
         xs = range(w) if dx > 0 else range(w - 1, -1, -1)
         for i, x in enumerate(xs):
             out[..., x, :] = c[..., x, :] if i == 0 else _step(
-                out[..., x - dx, :], c[..., x, :], every, p1, p2, label_ext)
+                out[..., x - dx, :], c[..., x, :], every, p1,
+                p2 if isinstance(p2, int) else p2[..., x, None], label_ext)
         return out
     valid = torch.zeros(w, dtype=torch.bool, device=c.device)
-    inside = slice(dx, None) if dx >= 0 else slice(None, dx)
-    source = slice(None, w - dx) if dx >= 0 else slice(-dx, None)
-    valid[inside] = True
+    cols, source = inside(w, dx)
+    valid[cols] = True
     ys = range(h) if dy > 0 else range(h - 1, -1, -1)
     for i, y in enumerate(ys):
-        if i == 0:
+        if i < abs(dy):
             out[..., y, :, :] = c[..., y, :, :]
             continue
         prev = torch.full_like(c[..., y, :, :], INF)
-        prev[..., inside, :] = out[..., y - dy, source, :]
-        out[..., y, :, :] = _step(prev, c[..., y, :, :], valid, p1, p2,
-                                  label_ext)
+        prev[..., cols, :] = out[..., y - dy, source, :]
+        out[..., y, :, :] = _step(
+            prev, c[..., y, :, :], valid, p1,
+            p2 if isinstance(p2, int) else p2[..., y, :, None], label_ext)
     return out
 
 
-def aggregate(cost: torch.Tensor, p1: int, p2: int,
+def aggregate(cost: torch.Tensor, p1: int, p2,
               label_ext: int | None = None, dirs=DIRS_8) -> torch.Tensor:
-    """S = sum over the directions of L_r, int32."""
+    """S = sum over the directions of L_r, int32.  ``p2`` is an int, or a
+    function of the direction r that gives r's (..., H, W) P2' table: one
+    table and one L_r are held at a time."""
     s = None
     for r in dirs:
-        l_r = path_cost(cost, r, p1, p2, label_ext)
+        l_r = path_cost(cost, r, p1, p2(r) if callable(p2) else p2,
+                        label_ext)
         s = l_r if s is None else s.add_(l_r)
     return s
 

@@ -12,7 +12,8 @@
                                          a card) for a driver with ranks
                                          on other cards
     benchmark/inputs/<generator>.py      make(frames, cfg, gen, **args)
-    benchmark/reference/<kind>.py        run(a, b, cfg, control=None)
+    benchmark/reference/<kind>.py        run(a, b, cfg, control=None);
+                                         SMALL, the tests' sizes
     benchmark/work/<kind>.py             aggregate_work(cfg) -> (bytes, ops)
     benchmark/metrics/<metric>.py        read(run) -> value or None
     benchmark/kernels/*.json             hand-written kernel -> stage

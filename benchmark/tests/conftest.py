@@ -1,5 +1,6 @@
 """CPU fixtures of the benchmark's tests: one intra-op thread, and the
-benchmark's cells shrunk to sizes a test run holds (the sizes alone: every
+benchmark's cells shrunk to sizes a test run holds, the ``SMALL`` that the
+reference of the configuration's kind states (the sizes alone: every
 switch of the configuration stays as the cell states it)."""
 
 import pytest
@@ -9,13 +10,11 @@ from benchmark import spec
 
 torch.set_num_threads(1)
 
-SMALL = {"stereo": dict(height=40, width=56, params=dict(max_disp=32)),
-         "flow": dict(height=40, width=56,
-                      params=dict(levels=2, search_radius=2))}
 
-
-def shrink(cfg: dict) -> dict:
-    small = SMALL[cfg["kind"]]
+def shrink(cfg: dict, load_reference=None) -> dict:
+    """cfg at the SMALL of its kind's reference, found by
+    ``load_reference`` (spec.load_reference where None)."""
+    small = (load_reference or spec.load_reference)(cfg["kind"]).SMALL
     return {**cfg, "height": small["height"], "width": small["width"],
             "params": {**cfg["params"], **small["params"]}}
 
@@ -23,8 +22,10 @@ def shrink(cfg: dict) -> dict:
 @pytest.fixture
 def small_cells(monkeypatch):
     """spec.load_config / load_traffic at test sizes: 2 frames a batch
-    call, 2 sampled calls, 3 calls in the pool."""
+    call, 2 sampled calls, 3 calls in the pool.  The sizes come from the
+    references as loaded here, before a test stands in for one."""
     load_config, load_traffic = spec.load_config, spec.load_traffic
+    load_reference = spec.load_reference
 
     def traffic(name):
         t = dict(load_traffic(name))
@@ -32,7 +33,8 @@ def small_cells(monkeypatch):
         t["check_calls"] = min(t["check_calls"], 2)
         t["pool_calls"] = 3
         return t
-    monkeypatch.setattr(spec, "load_config", lambda n: shrink(load_config(n)))
+    monkeypatch.setattr(spec, "load_config",
+                        lambda n: shrink(load_config(n), load_reference))
     monkeypatch.setattr(spec, "load_traffic", traffic)
 
 

@@ -106,6 +106,8 @@ def test_every_name_loads_from_its_file():
         assert callable(driver.build) and driver.FRAME_AXIS in (True, False)
         assert callable(spec.load_generator(traffic["generator"]).make)
         assert callable(spec.load_reference(cfg["kind"]).run)
+        assert set(spec.load_reference(cfg["kind"]).SMALL) == {
+            "height", "width", "params"}
         assert callable(spec.load_work(cfg["kind"]).aggregate_work)
         assert cfg["limits"] == {"mismatched_px": 0}
         assert traffic["in_flight"] >= 1 and traffic["check_calls"] >= 1
