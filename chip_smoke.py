@@ -26,16 +26,21 @@ direction.
 Phases, each of which raises on failure (non-zero exit, no ok line):
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. build the kernels from fsgm_tpu_torch/csrc, one nvcc per source (seven
-     sources, ten entry points), all started together, and print the
+  1. build the kernels from fsgm_tpu_torch/csrc, one nvcc per source (eight
+     sources, eleven entry points), all started together, and print the
      -Xptxas -v record of every K2 instantiation (registers, shared
-     memory, spills) and of K1's, K3's, K4's, K5's, K6's and min16_probe's
-     (the worst, and the main path's);
+     memory, spills) and of K1's, K3's, K4's, K5's, K6's, min16_probe's and
+     K7's (the worst, and the main path's);
   2. stereo kernels K1 census_cost (left and right reference, with the
      main path's 32-bit census words and with 64-bit ones), K2 sgm_sweep
      (1D labels; each direction with packed and with int32 labels) and K3
      extract_stereo against their plain PyTorch versions on the card,
-     exact, at the KITTI shape (random-dot pair) and at 37x53, D=32;
+     exact, at the KITTI shape (random-dot pair) and at 37x53, D=32; (b)
+     K7 census, every path's census, against census_transform_plain,
+     exact, one launch a call: 16 KITTI frames with the 5x5 window and
+     with 9x7, uint8 and int32 pixels, and config 4's four level shapes
+     over 16 slices, timed (16 frames) beside its bound and the plain
+     stage's event and device ms (the kernels line's census row);
   3. flow kernels K5 label_minor_from_major, K2 sgm_sweep (2D labels) and
      K4 extract_flow against their plain versions, exact, on one flow level
      with a non-zero prior: the config-4 level-0 shape (375x1242, 81 labels
@@ -217,7 +222,8 @@ family launch counts what the per-direction launches count for the same
 directions (and an S read when it adds into a given S); wta_right 3
 operations per S value (shift, or, min) and one int32 output per pixel;
 min16_probe two inputs read and one output written, one operation per
-value.
+value; K7 each pixel's byte read and its 8-byte word written, 3 operations
+a window bit (compare, shift, or).
 Operations per element: K1 3 (xor, popcount, select) per cost
 byte; K2 8 per label and direction for 1D labels (two shuffled neighbours,
 +P1, three mins, +C-m, the warp min), 11 for 2D labels (two more neighbour
@@ -309,6 +315,12 @@ SOURCES = {
         ("flow", "flow_batch", "flow_tiled", "flow_tiled_batch", "bench",
          "video", "kitti", "multiproc_flow")),
     "min16_probe": ("min16_probe", "tools/tr_int16_probe.py:41", None, ()),
+    "census": (
+        "census", "none (the XLA stage fsgm_tpu/ops/census.py::"
+        "census_transform)", None,
+        ("stereo", "stereo_batch", "stereo_tiled", "flow", "flow_batch",
+         "flow_tiled", "flow_tiled_batch", "bench", "video", "kitti",
+         "multiproc", "multiproc_flow")),
 }
 PROBE_SHAPE = (376, 1280, 128)  # tools/strideroll_probe.py's H, W, L
 MIN16_N = 1 << 26               # values per min16_probe input
@@ -329,6 +341,7 @@ MODES_HW = (96, 128)    # phase 12's fb_backward x fb_grid frames
 MODES_FRAMES = 3
 UHD_FLOW_FRAMES = 2     # 4K flow frames of phase 13's tiled pass
 FLOW_COST_SLICES = 16   # slices of phase 3's K6 checks (a batch8 level)
+CENSUS_FRAMES = 16      # KITTI frames of phase 2(b)'s K7 checks (batch16)
 SHARD_FRAMES = 2        # config-4 flow frames a shard (rank) in phase 13
 
 
@@ -365,14 +378,14 @@ def ptxas_record() -> dict:
 
 def lib_ptxas_record() -> dict:
     """-Xptxas -v of cost.cu (K1), extract.cu (K3, wta_right),
-    extract_flow.cu (K4), transpose.cu (K5), flow_cost.cu (K6) and
-    min16_probe.cu: per library the instantiations, the worst registers,
-    static shared memory and spill bytes, and the main path's
-    instantiation [registers, smem, spill bytes]: K1
+    extract_flow.cu (K4), transpose.cu (K5), flow_cost.cu (K6),
+    min16_probe.cu and census.cu (K7): per library the instantiations, the
+    worst registers, static shared memory and spill bytes, and the main
+    path's instantiation [registers, smem, spill bytes]: K1
     census_cost_kernel<NP=4, left, 32-bit words>, K3 extract_kernel<K=4,
     int16, with the right view>, K4 extract_flow_kernel<K=3, int16>, K5
     transpose_tiled_kernel<G=6> (96 label slots), K6 flow_cost_kernel<32-bit
-    words>, min16_probe's packed form."""
+    words>, min16_probe's packed form, K7 census_kernel<uint8, 5x5>."""
     from fsgm_tpu_torch.ops.kernels import _build
     from fsgm_tpu_torch.utils.k2_bench import parse_ptxas
     main = {"cost": "census_cost_kernelILi4ELb0ELb1E",
@@ -380,7 +393,8 @@ def lib_ptxas_record() -> dict:
             "extract_flow": "extract_flow_kernelILi3EsE",
             "transpose": "transpose_tiled_kernelILi6EE",
             "flow_cost": "flow_cost_kernelILb1EE",
-            "min16_probe": "min_kernelILi3EE"}
+            "min16_probe": "min_kernelILi3EE",
+            "census": "census_kernelIhLi5ELi5EE"}
     out = {}
     for lib, tag in main.items():
         recs = parse_ptxas(_build.ptxas_log(lib))
@@ -396,7 +410,7 @@ def lib_ptxas_record() -> dict:
             main=[hit[0]["registers"], hit[0]["smem"],
                   hit[0]["spill_stores"] + hit[0]["spill_loads"]])
     print(f"ptxas cost.cu, extract.cu, extract_flow.cu, transpose.cu, "
-          f"flow_cost.cu and min16_probe.cu: {json.dumps(out)}")
+          f"flow_cost.cu, min16_probe.cu and census.cu: {json.dumps(out)}")
     return out
 
 
@@ -573,6 +587,60 @@ def check_extract_ties(dev) -> None:
     print(f"extract ties/int32 volume: max_abs_err {errs}")
 
 
+def check_census(dev, card_line: str) -> tuple:
+    """2(b): K7 census against census_transform_plain, bit for bit, one
+    launch a call: CENSUS_FRAMES KITTI frames with the main path's 5x5
+    window and with 9x7 (62 bits), over uint8 and int32 pixels; config 4's
+    four level shapes over FLOW_COST_SLICES slices.  Timed (CENSUS_FRAMES
+    uint8 frames, 5x5 and 9x7) beside its bound (each pixel reads its byte
+    and writes its 8-byte word; 3 ops a window bit: compare, shift, or) and
+    the plain stage (its event ms, and its device ms and launches summed
+    over every launch).  Returns (errs, times)."""
+    from fsgm_tpu_torch.ops import census as cs
+    from fsgm_tpu_torch.utils import card_timing
+    h, w, _ = KITTI
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def images(shape):
+        return torch.randint(0, 256, shape, generator=g, dtype=torch.uint8,
+                             device=dev)
+
+    img = images((CENSUS_FRAMES, h, w))
+    wide = img.to(torch.int32) * 4099 - 500_000
+    cases = [(x, win) for x in (img, wide) for win in ((5, 5), (9, 7))]
+    cases += [(images((FLOW_COST_SLICES,) + hw), (5, 5))
+              for hw in FLOW_LEVELS]
+    err = 0
+    for x, win in cases:
+        got, n7 = counted(lambda: cs.census_transform(x, win))
+        tag = f"K7 {win[0]}x{win[1]} on {tuple(x.shape)} {x.dtype}"
+        require(n7 == {"census": 1}, f"{tag}: launches {n7}")
+        e = exact_err(got, cs.census_transform_plain(x, win))
+        require(e == 0, f"{tag} != plain")
+        err = max(err, e)
+        del got
+    del cases, wide
+    times = {}
+    for win in ((5, 5), (9, 7)):
+        px, bits = img.numel(), win[0] * win[1] - 1
+        b_ms, b_by = bound(9 * px, 3 * bits * px)
+        kern = lambda: cs.census_transform(img, win)  # noqa: E731
+        plain = lambda: cs.census_transform_plain(img, win)  # noqa: E731
+        plain_dev, plain_launches = card_timing.device_total(plain, reps=3)
+        times[f"{win[0]}x{win[1]}"] = dict(
+            frames=CENSUS_FRAMES, ms=median_ms(kern),
+            device_ms=device_ms(kern),
+            plain_ms=median_ms(plain, reps=3, warmup=1),
+            plain_device_ms=plain_dev, plain_launches=plain_launches,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    torch.cuda.empty_cache()
+    print(f"K7 census == plain, one launch a call: {CENSUS_FRAMES} KITTI "
+          f"frames 5x5 and 9x7, uint8 and int32; config 4's levels "
+          f"{FLOW_LEVELS} over {FLOW_COST_SLICES} slices; times "
+          f"{json.dumps(times)} ({card_line})")
+    return {"census": err}, times
+
+
 def check_batch_kernels(shape, b, params, dev, tag: str) -> dict:
     """K1 (left and right reference), K2 (each direction and the sum) and K3
     (with and without the right-view pass) over B frames against their
@@ -647,8 +715,8 @@ def check_batch_path(shape, b, params, dev, tag: str) -> dict:
     launches = dict(_build.LAUNCHES)
     print(f"launches in one stereo_sgm_batch call ({tag}, {b} frames): "
           f"{launches}")
-    want = {"census_cost": 1, **k2_launches((b, h, w, d), dev, params.dirs,
-                                            params),
+    want = {"census": 2, "census_cost": 1,
+            **k2_launches((b, h, w, d), dev, params.dirs, params),
             "extract_stereo": 1}
     require(launches == want, f"{tag} batch launches {launches} != {want}")
     require(tuple(disp.shape) == (b, h, w) and disp.dtype == torch.float32
@@ -1122,8 +1190,8 @@ def check_config5(dev) -> dict:
           f"{launches}; counters: rows "
           f"{ {k: sum(v) for k, v in counters['rows'].items()} }, bytes "
           f"{counters['bytes']}")
-    require(launches == {"census_cost": tiles, "sgm_sweep": sweeps,
-                         "extract_stereo": tiles},
+    require(launches == {"census": 2 * tiles, "census_cost": tiles,
+                         "sgm_sweep": sweeps, "extract_stereo": tiles},
             f"config-5 tiled launches {launches}")
     require(tuple(got.shape) == (2, h, w) and bool(torch.isfinite(got).all()),
             "config-5 tiled shape / finiteness")
@@ -1235,11 +1303,14 @@ def tiled_flow_launches(fparams, tiles: int) -> dict:
     three of each vertical family with its carry) and one K4 a level-pass;
     the level-passes as flow_launches counts them (a level's forward and
     backward passes are one, "single" adds its backward level, the last
-    level of "cheap" extracts each half apart)."""
+    level of "cheap" extracts each half apart); a level-pass's census (K7)
+    once a tile for its first images and once for the whole second images
+    (every tile on one card)."""
     mode = fparams.fb_backward if fparams.fb_check else None
     passes = fparams.levels + (mode == "single")
     split = mode == "cheap" and (fparams.subpixel or fparams.median_filter)
-    return {"flow_cost": tiles * passes,
+    return {"census": (tiles + 1) * passes,
+            "flow_cost": tiles * passes,
             "sgm_sweep": 8 * tiles * passes,
             "extract_flow": tiles * (passes + split)}
 
@@ -1446,7 +1517,8 @@ def flow_launches(img, fparams, dev, frames: int = 1) -> dict:
     backward level-pass at level 0 over frames slices; the last level of
     "cheap" extracts each half apart (two K4 launches) where its params
     differ.  K2's launches are aggregate_paths' (k2_launches) for each
-    level-pass's slices."""
+    level-pass's slices; census (K7) runs once a level for each image set,
+    whatever the mode."""
     from fsgm_tpu_torch.models.flow import build_pyramid
     from fsgm_tpu_torch.params import DIRS_8
     nd = -(-fparams.num_labels // 32) * 32
@@ -1459,7 +1531,7 @@ def flow_launches(img, fparams, dev, frames: int = 1) -> dict:
               for lvl, hw in enumerate(shapes)]
     if mode == "single":
         passes.append((shapes[0], frames, 1))
-    total = {"flow_cost": len(passes),
+    total = {"census": 2 * len(shapes), "flow_cost": len(passes),
              "extract_flow": sum(k4 for _, _, k4 in passes)}
     for (h, w), n, _ in passes:
         for k, c in k2_launches((n, h, w, nd), dev, DIRS_8, fparams,
@@ -2063,7 +2135,8 @@ def check_bench(dev, card_line: str) -> dict:
                 batch).items()}
             require(n == want, f"bench {cfg} launches {n} != {want}")
         else:
-            want = {"census_cost": calls, "extract_stereo": calls,
+            want = {"census": 2 * calls, "census_cost": calls,
+                    "extract_stereo": calls,
                     **{k: v * calls for k, v in k2_launches(
                         (batch, h, w, d), dev, p.dirs, p).items()}}
             require(n == want, f"bench {cfg} launches {n} != {want}")
@@ -2106,7 +2179,7 @@ def check_bench_cli(card_line: str) -> dict:
                         "fsgm.census", "fsgm.cost", "fsgm.aggregate.group",
                         "fsgm.extract", "fsgm.median"))
                     and all(by[k]["launches"] > 0 for k in (
-                        "fsgm.cost", "fsgm.aggregate.group",
+                        "fsgm.census", "fsgm.cost", "fsgm.aggregate.group",
                         "fsgm.extract")), f"stages {stages}")
                 for r in stages:
                     print(f"stage {json.dumps(r)} ({card_line})")
@@ -2378,7 +2451,8 @@ def check_multiproc(dev, params, fparams, flow_launches: dict,
     stereo = rank_launches(reports, 0)
     tiles = d5.frame_shards * d5.tiles_y
     n_v = sum(1 for r in p5.dirs if r[0] != 0)
-    want_s = {"census_cost": tiles, "extract_stereo": tiles,
+    want_s = {"census": 2 * tiles, "census_cost": tiles,
+              "extract_stereo": tiles,
               "sgm_sweep": tiles * (len(p5.dirs) + n_v) - RANKS * n_v}
     require(stereo == want_s, f"multiproc launches {stereo} != {want_s}")
     flow = rank_launches(reports, 3)
@@ -2807,6 +2881,8 @@ def main() -> int:
     errs = merge_errs(errs, check_kernels(SMALL, wide, dev, wide.dirs,
                                           "37x53 int32 S"))
     check_extract_ties(dev)
+    census_errs, census_times = check_census(dev, card_line)
+    errs = merge_errs(errs, census_errs)
 
     # 3. flow kernels against their plain versions
     fparams = load_preset("configs/kitti_flow.json")["flow"]
@@ -2830,8 +2906,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {"stereo": dict(_build.LAUNCHES)}
     print(f"launches in one stereo_sgm call: {launches['stereo']}")
-    want = {"census_cost": 1, **k2_launches((h, w, d), dev, params.dirs,
-                                            params),
+    want = {"census": 2, "census_cost": 1,
+            **k2_launches((h, w, d), dev, params.dirs, params),
             "extract_stereo": 1}
     require(launches["stereo"] == want, f"stereo launches != {want}")
     ref = stereo_sgm_reference(tl, tr, params)
@@ -3151,6 +3227,7 @@ def main() -> int:
     times["wta_right"] = {k: vtimes["wta_right"][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     times["flow_cost"] = fc_times["level0_x1"]
+    times["census"] = census_times["5x5"]
     times["min16_probe"] = {k: vtimes["min16"][k] for k in (
         "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     for name, (_, _, _, paths) in SOURCES.items():
@@ -3203,6 +3280,9 @@ def main() -> int:
         if name == "flow_cost":  # the row's times: one config-4 level 0
             row["ptxas"] = lib_ptxas["flow_cost"]
             row["shapes"] = fc_times
+        if name == "census":  # the row's times: 16 KITTI frames, 5x5
+            row["ptxas"] = lib_ptxas["census"]
+            row["window_9x7"] = census_times["9x7"]
         if name == "min16_probe":  # the row's times: the packed form
             row.update(forms=vtimes["min16"]["forms"], n=MIN16_N,
                        library_int32_ms=vtimes["min16"]["library_int32_ms"],

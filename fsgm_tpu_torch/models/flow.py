@@ -3,10 +3,11 @@
 Counterpart of fsgm_tpu/models/flow.py (``flow_fsgm``, ``flow_fsgm_batch``,
 ``flow_sequence``).  Per pyramid level, coarsest first:
 
-    census (plain torch) -> K6 flow_cost (the label-minor flow cost volume
-    in one launch) -> K2 over 8 directions with the 2D label rule
-    (aggregate_paths, which plans its launches from the slice count) -> K4
-    extract_flow -> parabola, base + offset and median (plain torch)
+    census (K7, one launch an image set) -> K6 flow_cost (the label-minor
+    flow cost volume in one launch) -> K2 over 8 directions with the 2D
+    label rule (aggregate_paths, which plans its launches from the slice
+    count) -> K4 extract_flow -> parabola, base + offset and median (plain
+    torch)
 
 over the (2w+1)^2 label window centred on the 2x-upsampled coarser flow.
 The label axis is padded to a multiple of 32 for the kernels; the padding
@@ -327,8 +328,8 @@ def _flow(imgs1: torch.Tensor, imgs2: torch.Tensor, params: FlowParams,
     (B, H, W) validity)."""
     pyr1 = build_pyramid(imgs1, params.levels)
     pyr2 = build_pyramid(imgs2, params.levels)
-    cens1 = [census_transform(x, params.census_window) for x in pyr1]
-    cens2 = [census_transform(x, params.census_window) for x in pyr2]
+    cens1 = [census_transform(x, params.census_window, plain) for x in pyr1]
+    cens2 = [census_transform(x, params.census_window, plain) for x in pyr2]
     init = None
     if prior_flow is not None:
         with tracing.span("fsgm.pyramid"):

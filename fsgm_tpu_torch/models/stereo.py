@@ -76,8 +76,8 @@ def _stereo(imgs_l: torch.Tensor, imgs_r: torch.Tensor, params: SGMParams,
             plain: bool) -> torch.Tensor:
     """(B, H, W) uint8 pairs -> (B, H, W) float32 disparity."""
     with tracing.span("fsgm.stereo", frames=imgs_l.shape[0]):
-        cen_l = census_transform(imgs_l, params.census_window)
-        cen_r = census_transform(imgs_r, params.census_window)
+        cen_l = census_transform(imgs_l, params.census_window, plain)
+        cen_r = census_transform(imgs_r, params.census_window, plain)
         d_right = None
         if params.lr_check and params.lr_mode == "reagg":
             # first, so that S_R is freed before the left S exists

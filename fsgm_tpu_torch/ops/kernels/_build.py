@@ -70,6 +70,7 @@ ENTRY = {
     "flow_cost": ("flow_cost", "fsgm_flow_cost", [_P] * 5 + [_I] * 10 + [_P]),
     "min16_probe": ("min16_probe", "fsgm_min16_probe",
                     [_P, _P, _P, ctypes.c_longlong, _I, _P]),
+    "census": ("census", "fsgm_census", [_P, _P] + [_I] * 6 + [_P]),
 }
 LIBRARIES = sorted({lib for lib, _, _ in ENTRY.values()})
 # entry points that launch nothing: they answer a question about a kernel

@@ -311,10 +311,10 @@ def _stereo_chain(tl: list, tr: list, params: SGMParams, dist: DistParams,
     ht = tl[0].shape[-2]
     il_ext = exchange_row_halo(tl, halo, counters)
     ir_ext = exchange_row_halo(tr, halo, counters)
-    cen_l = [census_transform(x, params.census_window)[..., halo:-halo, :]
-             .contiguous() for x in il_ext]
-    cen_r = [census_transform(x, params.census_window)[..., halo:-halo, :]
-             .contiguous() for x in ir_ext]
+    cen_l = [census_transform(x, params.census_window, plain)
+             [..., halo:-halo, :].contiguous() for x in il_ext]
+    cen_r = [census_transform(x, params.census_window, plain)
+             [..., halo:-halo, :].contiguous() for x in ir_ext]
     margin = tile_margin(params, dist)
     build = kcost.census_cost_plain if plain else kcost.census_cost
     extract = kext.extract_stereo_plain if plain else kext.extract_stereo
